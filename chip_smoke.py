@@ -5,23 +5,37 @@ NVIDIA GPU.
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 
 1. Device: the card's name and power limit, torch and CUDA versions; builds
-   the CUDA kernels from ``lcp_physics_tpu_torch/csrc`` and times the build.
-2. Kernels: each kernel (LU factor, substitution, fused IPM) against its
-   plain torch version on the card at B = 4096, float32 and float64, with
-   CUDA-event timings (median of 20) of kernel and plain version.
-3. The slice: the batched 8-circle contact rollout of the LCP benchmark
-   scene (B = 4096 worlds, c_max = 8, dt = 0.01, SimConfig(max_iter=15,
-   solver_eps=1e-6), float32, 20 steps) through ``make_batched_step`` and
-   ``rollout`` — once through the kernels, with their launch counters
-   reset just before, and once through the plain versions — plus a small
-   float64 scene held against the JAX package's record
-   (``tests/data/torch_slice_golden.json``).
-4. A JSON line per kernel, then the contract line
+   the CUDA kernels from ``lcp_physics_tpu_torch/csrc`` (one nvcc per
+   source, all at once) and times the build.
+2. Kernels: each kernel (LU factor, substitution, fused IPM, blocked and
+   scalar Gauss-Jordan panel inverse) against its plain torch version on
+   the card, float32 and float64, with CUDA-event timings (median of 20)
+   of kernel and plain version; the panel inverses also by ||K X - I||
+   against the plain version's own.
+3. The forward slice: the batched 8-circle contact rollout of the LCP
+   benchmark scene (B = 4096 worlds, c_max = 8, dt = 0.01,
+   SimConfig(max_iter=15, solver_eps=1e-6), float32, 20 steps) through
+   ``make_batched_step`` and ``rollout`` — once through the kernels, with
+   their launch counters reset just before, and once through the plain
+   versions — plus a small float64 scene held against the JAX package's
+   record (``tests/data/torch_slice_golden.json``).
+4. The training slice: value and gradients of mean(p^2) through an 8-step
+   rollout of the dense 64-circle grid of bench.py::bench_fwd_bwd_dense
+   (B = 256, c_max = 128, SimConfig(max_iter=12, solver_eps=1e-5),
+   float32; the rotated Schur system K2 = 256 goes through the blocked
+   factor and the rank-16 panel kernel), the same at float64 (B = 32,
+   the scalar panel kernel), a B = 2 float64 grid held against the JAX
+   record ``tests/data/torch_train_golden.json``, and the backward of
+   bench.py::bench_fwd_bwd's touching 8-circle line (B = 64, 20 steps,
+   the trans=1 substitution kernel) — each through the kernels with the
+   counters reset just before it, and against the plain versions.
+5. A JSON line per kernel, then the contract line
    ``{"ok": true, "device": {...}}`` last.
 
 Any failed check raises; the script exits non-zero without the last line.
 It exits non-zero at once when no CUDA device is present.
 """
+import concurrent.futures
 import contextlib
 import json
 import os
@@ -35,6 +49,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 B = 4096
 N, C, DT, STEPS = 8, 8, 0.01, 20
 CAP_ITERS = 3   # the fused kernel's per-world check: iterations, no stopping
+KERNEL_SOURCES = ("lu", "fused_ipm", "gj_inv")
+TRAIN_B, TRAIN_SIDE, TRAIN_C, TRAIN_STEPS = 256, 8, 128, 8
+TRAIN_B64 = 32
+GJ_RES_RATIO = 4   # a panel kernel's ||K X - I|| against its plain version's
+LINE_B, LINE_STEPS = 64, 20
 
 
 def check(ok, what):
@@ -123,8 +142,8 @@ def phase_device(torch):
           "float32 matmuls run in full float32 (TF32 off)")
     from lcp_physics_tpu_torch.ops import _build
     t0 = time.time()
-    for name in ("lu", "fused_ipm"):
-        _build.load(name)
+    with concurrent.futures.ThreadPoolExecutor(len(KERNEL_SOURCES)) as ex:
+        list(ex.map(_build.load, KERNEL_SOURCES))
     print(f"kernels built and loaded in {time.time() - t0:.1f} s", flush=True)
     return smi
 
@@ -180,6 +199,66 @@ def phase_lu(torch, dev):
                       f" solve {cuda_ms(torch, lambda: linalg.plu_solve(lu, r)):.3f} ms"
                       f" (plain {cuda_ms(torch, lambda: linalg.plu_solve_ref(lu, r)):.3f})",
                       flush=True)
+    return out
+
+
+def inv_residual(torch, K, X):
+    """Per-matrix ||K X - I||_inf (largest entry), in float64."""
+    eye = torch.eye(K.shape[-1], dtype=torch.float64, device=K.device)
+    return (K.double() @ X.double() - eye).abs().amax((1, 2))
+
+
+def hold_gj(torch, name, f, fr, K):
+    """One panel-inverse kernel against its plain version on panels K: the
+    per-matrix error (f32 1e-4, f64 1e-10), and ||K X - I||_inf at most
+    GJ_RES_RATIO times plain's, in the largest and in the median matrix
+    (a fault at rounding level, such as D^-1 D's noise left in K4's pivot
+    column, passes the error bound but not this).  Returns (X, Xr)."""
+    X, Xr = f(K), fr(K)
+    torch.cuda.synchronize()
+    e = rel_err(X, Xr)
+    res, res_r = inv_residual(torch, K, X), inv_residual(torch, K, Xr)
+    rmax, rmax_r = float(res.max()), float(res_r.max())
+    rmed, rmed_r = float(res.median()), float(res_r.median())
+    lim = 1e-4 if K.dtype == torch.float32 else 1e-10
+    B, P = K.shape[:2]
+    check(e <= lim and rmax <= GJ_RES_RATIO * rmax_r
+          and rmed <= GJ_RES_RATIO * rmed_r,
+          f"{name} ({B}, {P}, {P}) {str(K.dtype)[6:]}: per-matrix error vs "
+          f"plain {e:.2e} (<= {lim:g}); ||K X - I||_inf max {rmax:.2e}, "
+          f"median {rmed:.2e} (plain {rmax_r:.2e}, {rmed_r:.2e}; <= "
+          f"{GJ_RES_RATIO}x); {cuda_ms(torch, lambda: f(K)):.3f} ms vs "
+          f"plain {cuda_ms(torch, lambda: fr(K)):.3f} ms")
+    return X, Xr
+
+
+def phase_gj(torch, dev):
+    """K4 (rank-16 blocked, f32) and K5 (scalar, f32 and f64) against their
+    plain versions on quasi-definite panels, B = 1024, then at the training
+    paths' shapes: K4 on (256, 64, 64) f32 panels (the dense f32 step's
+    two-level split), K5 on (32, 128, 128) f64 (the f64 step)."""
+    from lcp_physics_tpu_torch.ops import linalg
+    rng = np.random.default_rng(0)
+    kinds = {"gj_inv_blocked": (linalg.gj_inv_blocked,
+                                linalg.gj_inv_blocked_ref),
+             "gj_inv": (linalg.gj_inv, linalg.gj_inv_ref)}
+    for P in (64, 128):
+        Kn = kkt_batch(rng, 1024, P)
+        for dt in (torch.float32, torch.float64):
+            K = torch.tensor(Kn, dtype=dt, device=dev)
+            names = (["gj_inv_blocked"] if dt == torch.float32 else []) \
+                + (["gj_inv"] if P == 128 else [])
+            for name in names:
+                hold_gj(torch, name, *kinds[name], K)
+    out = {}
+    for name, Bp, P, dt in (("gj_inv_blocked", TRAIN_B, 64, torch.float32),
+                            ("gj_inv", TRAIN_B64, 128, torch.float64)):
+        f, fr = kinds[name]
+        K = torch.tensor(kkt_batch(rng, Bp, P), dtype=dt, device=dev)
+        X, Xr = hold_gj(torch, name, f, fr, K)
+        out[name] = dict(max_abs_err=float((X - Xr).abs().max()),
+                         ms=cuda_ms(torch, lambda: f(K)),
+                         plain_ms=cuda_ms(torch, lambda: fr(K)))
     return out
 
 
@@ -282,21 +361,33 @@ def launch_counts():
     return dict(linalg.LAUNCHES, **ipm.LAUNCHES)
 
 
+def reset_counts():
+    from lcp_physics_tpu_torch.ops import ipm, linalg
+    for counts in (linalg.LAUNCHES, ipm.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
 @contextlib.contextmanager
 def plain_kernels(what):
     """Route the solver through the plain torch versions (the comparison
     path): the solver looks its kernels up on these modules.  Checks that
     no kernel launched inside, so the comparison path was plain."""
     from lcp_physics_tpu_torch.ops import ipm, linalg
-    saved = (linalg.plu_factor, linalg.plu_solve, ipm.fused_ipm)
-    linalg.plu_factor = linalg.plu_factor_ref
-    linalg.plu_solve = linalg.plu_solve_ref
-    ipm.fused_ipm = ipm.fused_ipm_ref
+    swaps = [(linalg, "lu_factor", linalg.plu_factor_ref),
+             (linalg, "lu_solve", linalg.plu_solve_ref),
+             (linalg, "gj_inv_blocked", linalg.gj_inv_blocked_ref),
+             (linalg, "gj_inv", linalg.gj_inv_ref),
+             (ipm, "fused_ipm", ipm.fused_ipm_ref)]
+    saved = [getattr(mod, name) for mod, name, _ in swaps]
+    for mod, name, ref in swaps:
+        setattr(mod, name, ref)
     before = launch_counts()
     try:
         yield
     finally:
-        linalg.plu_factor, linalg.plu_solve, ipm.fused_ipm = saved
+        for (mod, name, _), f in zip(swaps, saved):
+            setattr(mod, name, f)
     check(launch_counts() == before,
           f"{what} launched no kernel (plain versions only)")
 
@@ -326,6 +417,62 @@ def slice_scene(torch, dev, dt, p0, v0):
     return step, params, state
 
 
+def grid_start(B, side, seed=1):
+    """The touching grid of bench.py::build_world_scene(dense=True):
+    side x side radius-1 circles at spacing 2.01, positions jittered by
+    uniform(-0.01, 0.01), velocities normal(0, 0.5), drawn per world
+    (numpy, ``seed``)."""
+    rng = np.random.default_rng(seed)
+    gx, gy = np.meshgrid(np.arange(side), np.arange(side))
+    pos = np.stack([gx.ravel() * 2.01, gy.ravel() * 2.01], -1)
+    pos = pos + rng.uniform(-0.01, 0.01, (B, side * side, 2))
+    v0 = rng.normal(0, 0.5, (B, side * side, 3))
+    return np.concatenate([np.zeros((B, side * side, 1)), pos], -1), v0
+
+
+def line_start(B):
+    """bench.py::bench_fwd_bwd's touching line: 8 radius-1 circles at
+    spacing 2.0 on the x axis, at rest, in every world."""
+    pos = np.stack([np.arange(8) * 2.0, np.zeros(8)], -1)
+    p0 = np.concatenate([np.zeros((8, 1)), pos], -1)
+    return np.broadcast_to(p0, (B, 8, 3)).copy(), np.zeros((B, 8, 3))
+
+
+def train_scene(torch, dev, dt, p0, v0, c_max, restitution=0.4, **cfg):
+    """(step, params, state) of a circle scene under the benchmark's
+    training configuration, SimConfig(max_iter=12, solver_eps=1e-5)
+    (``cfg`` adds or replaces fields), gravity (0, 10); params.mass,
+    .restitution,
+    .fric_coeff and state.v require gradients."""
+    from lcp_physics_tpu_torch.core import (WorldState, default_params,
+                                            make_scene_static)
+    from lcp_physics_tpu_torch.parallel import make_batched_step
+    from lcp_physics_tpu_torch.utils import SimConfig
+    n = p0.shape[1]
+    static = make_scene_static([1] * n, c_max=c_max)
+    params = default_params(static, verts=np.zeros((n, 1, 2)),
+                            radius=np.full(n, 1.0), gravity=(0.0, 10.0),
+                            restitution=restitution, dtype=dt, device=dev)
+    state = WorldState(torch.tensor(p0, dtype=dt, device=dev),
+                       torch.tensor(v0, dtype=dt, device=dev),
+                       torch.zeros(p0.shape[0], dtype=dt, device=dev))
+    for x in (params.mass, params.restitution, params.fric_coeff, state.v):
+        x.requires_grad_(True)
+    step = make_batched_step(static, SimConfig(
+        **dict(dict(max_iter=12, solver_eps=1e-5), **cfg)))
+    return step, params, state
+
+
+def train_step(torch, step, params, state, n_steps, remat=False):
+    """Loss mean(p^2) after an ``n_steps`` rollout and its gradients with
+    respect to (mass, restitution, fric_coeff, v0)."""
+    from lcp_physics_tpu_torch.core import rollout
+    final, _ = rollout(step, params, state, DT, n_steps, remat=remat)
+    loss = (final.p ** 2).mean()
+    leaves = (params.mass, params.restitution, params.fric_coeff, state.v)
+    return loss.detach(), torch.autograd.grad(loss, leaves)
+
+
 def timed_rollout(torch, step, params, state, n):
     from lcp_physics_tpu_torch.core import rollout
     torch.cuda.synchronize()
@@ -340,9 +487,7 @@ def phase_slice(torch, dev, smi):
     p0, v0 = slice_start(B)
     step, params, state = slice_scene(torch, dev, torch.float32, p0, v0)
     step(params, state, DT)                        # warm-up, not counted
-    for counts in (linalg.LAUNCHES, ipm.LAUNCHES):
-        for k in counts:
-            counts[k] = 0
+    reset_counts()
     final, traj, sec = timed_rollout(torch, step, params, state, STEPS)
     launches = launch_counts()
     print(f"slice launches over {STEPS} steps: {launches}", flush=True)
@@ -410,6 +555,167 @@ def phase_slice(torch, dev, smi):
     return launches
 
 
+def timed_train(torch, step, params, state, n_steps):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, grads = train_step(torch, step, params, state, n_steps)
+    torch.cuda.synchronize()
+    return loss, grads, time.perf_counter() - t0
+
+
+def ulp(p0):
+    """p0 moved by about one float32 ulp (numpy, seed 1)."""
+    return p0 * (1 + 2.0 ** -23
+                 * np.random.default_rng(1).standard_normal(p0.shape))
+
+
+def all_finite(torch, loss, grads):
+    return bool(torch.isfinite(loss)) and all(
+        bool(torch.isfinite(g).all()) for g in grads)
+
+
+def phase_train(torch, dev, smi):
+    """The dense training step at f32 (K4) and f64 (K5), and the B = 2 f64
+    grid against the JAX record.  Returns the launch counts of the f32 and
+    the f64 runs."""
+    from lcp_physics_tpu_torch.core import rollout
+    from lcp_physics_tpu_torch.lcp import pdipm
+    f32, f64 = torch.float32, torch.float64
+    p0, v0 = grid_start(TRAIN_B, TRAIN_SIDE)
+    step, params, state = train_scene(torch, dev, f32, p0, v0, TRAIN_C)
+    train_step(torch, step, params, state, 1)      # warm-up, not counted
+    reset_counts()
+    loss, grads, sec = timed_train(torch, step, params, state, TRAIN_STEPS)
+    launches = launch_counts()
+    print(f"training launches over {TRAIN_STEPS} steps, fwd+bwd: "
+          f"{launches}", flush=True)
+    check(launches["gj_inv_blocked"] > 0 and launches["gj_inv"] == 0,
+          "the f32 dense training step launched the rank-16 panel kernel "
+          "(and not the scalar one)")
+    check(all_finite(torch, loss, grads),
+          f"f32 loss {float(loss):.6e} and its gradients are finite")
+    reads = pdipm.HOST_READS["ipm_loop"]
+    with torch.no_grad():
+        _, _, sec_fwd = timed_rollout(torch, step, params, state,
+                                      TRAIN_STEPS)
+    reads = (pdipm.HOST_READS["ipm_loop"] - reads) / TRAIN_STEPS
+    # capped: one step, every world held at CAP_ITERS IPM iterations (no
+    # stopping rule fires), where the f32 gradient is well conditioned
+    cap = dict(max_iter=CAP_ITERS, solver_eps=0.0, solver_stall_lim=0)
+    step_c, params_c, state_c = train_scene(torch, dev, f32, p0, v0, TRAIN_C,
+                                            **cap)
+    _, grads_c = train_step(torch, step_c, params_c, state_c, 1)
+    with plain_kernels("the f32 training comparison runs"):
+        loss_r, grads_r, sec_r = timed_train(torch, step, params, state,
+                                             TRAIN_STEPS)
+        step_u, params_u, state_u = train_scene(torch, dev, f32, ulp(p0), v0,
+                                                TRAIN_C)
+        _, grads_u, _ = timed_train(torch, step_u, params_u, state_u,
+                                    TRAIN_STEPS)
+        _, grads_cr = train_step(torch, step_c, params_c, state_c, 1)
+    for s, path in ((sec, "kernel"), (sec_r, "plain")):
+        print(f"dense training step, {path} path: {1e3 * s:.1f} ms per "
+              f"fwd+bwd, {TRAIN_B * TRAIN_STEPS / s:,.0f} grad-world-steps/s"
+              f" (B={TRAIN_B}, f32, {TRAIN_STEPS} steps; {smi})", flush=True)
+    print(f"dense forward only, kernel path: {1e3 * sec_fwd / TRAIN_STEPS:.2f}"
+          f" ms/step; {reads:.1f} host reads per step in the IPM loop",
+          flush=True)
+    e = world_rel(grads_c[3], grads_cr[3])
+    check(float(e.max()) <= 1e-5 and float(e.median()) <= 1e-6,
+          f"f32 v0-gradient kernel vs plain, one step capped at {CAP_ITERS} "
+          f"IPM iterations: every world within {float(e.max()):.2e} "
+          f"(<= 1e-5), median {float(e.median()):.2e} (<= 1e-6)")
+    # Full 8-step run: the dense scene is chaotic and its f32 gradient
+    # moves by ~1e-2 under one ulp of input, so kernel vs plain is held to
+    # the plain path's own spread (B = 256: a share is good to ~3 points).
+    e, e_ulp = (world_rel(g[3], grads_r[3]) for g in (grads, grads_u))
+    check(float(e.median()) <= 2 * float(e_ulp.median())
+          and share(e, 1e-2) >= share(e_ulp, 1e-2) - 0.05,
+          f"f32 v0-gradient kernel vs plain, {TRAIN_STEPS} steps: median "
+          f"world {float(e.median()):.2e}, within 1e-2 on {share(e, 1e-2):.2%}"
+          f" of worlds, max {float(e.max()):.2e} (plain at p0+1ulp: median "
+          f"{float(e_ulp.median()):.2e}, within 1e-2 on "
+          f"{share(e_ulp, 1e-2):.2%}, max {float(e_ulp.max()):.2e}); loss "
+          f"{float(loss):.6e} vs plain {float(loss_r):.6e}")
+
+    p0, v0 = grid_start(TRAIN_B64, TRAIN_SIDE, seed=2)
+    step, params, state = train_scene(torch, dev, f64, p0, v0, TRAIN_C)
+    reset_counts()
+    loss, grads, sec = timed_train(torch, step, params, state, TRAIN_STEPS)
+    launches64 = launch_counts()
+    check(launches64["gj_inv"] > 0 and launches64["gj_inv_blocked"] == 0,
+          f"the f64 dense training step launched the scalar panel kernel "
+          f"({launches64['gj_inv']} launches), not the rank-16 one")
+    with plain_kernels("the f64 training comparison run"):
+        loss_r, grads_r, sec_r = timed_train(torch, step, params, state,
+                                             TRAIN_STEPS)
+    e = world_rel(grads[3], grads_r[3])
+    eg = max(rel_err(g[None], r[None]) for g, r in zip(grads[:3], grads_r[:3]))
+    el = abs(float(loss) / float(loss_r) - 1)
+    check(all_finite(torch, loss, grads) and float(e.max()) <= 1e-8
+          and eg <= 1e-8 and el <= 1e-12,
+          f"f64 kernel vs plain: v0-gradient per world max "
+          f"{float(e.max()):.2e} (median {float(e.median()):.2e}); mass, "
+          f"restitution, fric_coeff gradients {eg:.2e}; loss {el:.2e} "
+          f"({1e3 * sec:.0f} ms vs plain {1e3 * sec_r:.0f} ms per fwd+bwd, "
+          f"B={TRAIN_B64})")
+
+    with open(os.path.join(ROOT, "tests", "data",
+                           "torch_train_golden.json")) as f:
+        rec = json.load(f)
+    step, params, state = train_scene(torch, dev, f64, np.asarray(rec["p0"]),
+                                      np.asarray(rec["v0"]), rec["c_max"])
+    loss, grads = train_step(torch, step, params, state, rec["steps"])
+    el = abs(float(loss) / rec["loss"] - 1)
+    check(el <= 1e-10, f"B=2 f64 grid vs JAX record: loss {el:.2e} "
+                       "(<= 1e-10)")
+    for k, g in zip(("mass", "restitution", "fric_coeff", "v0"), grads):
+        want = torch.tensor(rec["grad_" + k], dtype=f64)
+        e = float((g.cpu() - want).abs().max()
+                  / max(1.0, float(want.abs().max())))
+        check(e <= 1e-8, f"B=2 f64 grid vs JAX record: d loss/d {k} {e:.2e}"
+                         " (<= 1e-8)")
+    return launches, launches64
+
+
+def phase_line(torch, dev, smi):
+    """The backward of the touching 8-circle line (fused forward, lane LU
+    with the trans=1 substitution backward).  Returns its launch counts."""
+    p0, v0 = line_start(LINE_B)
+    scene = lambda p: train_scene(torch, dev, torch.float32, p, v0, 16,
+                                  restitution=0.5)
+    step, params, state = scene(p0)
+    train_step(torch, step, params, state, 1)      # warm-up, not counted
+    reset_counts()
+    loss, grads, sec = timed_train(torch, step, params, state, LINE_STEPS)
+    launches = launch_counts()
+    print(f"line launches over {LINE_STEPS} steps, fwd+bwd: {launches}",
+          flush=True)
+    check(all(launches[k] > 0 for k in ("lu", "solve", "solve_t",
+                                        "fused_ipm")),
+          "the line's fwd+bwd launched the lu, solve (trans 0 and 1) and "
+          "fused_ipm kernels")
+    check(all_finite(torch, loss, grads), "line loss and gradients finite")
+    with plain_kernels("the line's comparison runs"):
+        loss_r, grads_r, sec_r = timed_train(torch, step, params, state,
+                                             LINE_STEPS)
+        step_u, params_u, state_u = scene(ulp(p0))
+        _, grads_u, _ = timed_train(torch, step_u, params_u, state_u,
+                                    LINE_STEPS)
+    for s, path in ((sec, "kernel"), (sec_r, "plain")):
+        print(f"line fwd+bwd, {path} path: {1e3 * s:.1f} ms (B={LINE_B}, "
+              f"f32, {LINE_STEPS} steps; {smi})", flush=True)
+    em, em_ulp = (rel_err(g[0][None], grads_r[0][None]) for g in (grads,
+                                                                 grads_u))
+    ev, ev_ulp = (float(world_rel(g[3], grads_r[3]).median())
+                  for g in (grads, grads_u))
+    check(em <= max(1e-3, 10 * em_ulp) and ev <= max(1e-3, 10 * ev_ulp),
+          f"line gradients kernel vs plain: mass {em:.2e}, v0 median world "
+          f"{ev:.2e} (plain at p0+1ulp: {em_ulp:.2e}, {ev_ulp:.2e}; bound "
+          "the larger of 1e-3 and 10x that)")
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -424,20 +730,31 @@ def main():
     print("== kernels vs plain versions", flush=True)
     stats = phase_lu(torch, dev)
     stats.update(phase_fused(torch, dev))
+    stats.update(phase_gj(torch, dev))
     for k, s in stats.items():
         print(f"  {k}: {s['ms']:.3f} ms (plain {s['plain_ms']:.3f} ms) at "
-              "the slice shape, B=4096 f32", flush=True)
-    print("== slice: batched 8-circle contact rollout", flush=True)
+              "its path's shape", flush=True)
+    print("== forward slice: batched 8-circle contact rollout", flush=True)
     launches = phase_slice(torch, dev, smi)
+    print("== training slice: dense 64-circle fwd+bwd", flush=True)
+    train32, train64 = phase_train(torch, dev, smi)
+    print("== backward of the touching 8-circle line", flush=True)
+    phase_line(torch, dev, smi)
 
     src = "lcp_physics_tpu_torch/csrc/"
-    rows = [("lu", src + "lu.cu", "lcp_physics_tpu/ops/linalg.py:113"),
-            ("solve", src + "lu.cu", "lcp_physics_tpu/ops/linalg.py:709"),
+    rows = [("lu", src + "lu.cu", "lcp_physics_tpu/ops/linalg.py:113",
+             launches),
+            ("solve", src + "lu.cu", "lcp_physics_tpu/ops/linalg.py:709",
+             launches),
             ("fused_ipm", src + "fused_ipm.cu",
-             "lcp_physics_tpu/ops/ipm.py:108")]
+             "lcp_physics_tpu/ops/ipm.py:108", launches),
+            ("gj_inv_blocked", src + "gj_inv.cu",
+             "lcp_physics_tpu/ops/linalg.py:238", train32),
+            ("gj_inv", src + "gj_inv.cu",
+             "lcp_physics_tpu/ops/linalg.py:150", train64)]
     kernels = [dict(name=name, route="cuda", source=source, replaces=rep,
-                    launches=launches[name], **stats[name])
-               for name, source, rep in rows]
+                    launches=counts[name], **stats[name])
+               for name, source, rep, counts in rows]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

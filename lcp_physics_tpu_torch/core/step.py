@@ -12,9 +12,12 @@ The contact-free fast path is a Python ``if`` on the batch-level AABB
 predicate (the JAX package's ``lax.cond``): one host synchronisation per
 step, and one more for the post-step penetration gate.
 
+The step is differentiable end to end: gradients pass through the
+narrowphase, the contact compaction (a gather) and the assembly as plain
+autograd, and through the LCP by ``lcp_solve``'s implicit backward.
+
 Not ported yet (each raises): post-stabilization and the penetration
-backtrack (ROADMAP A6), the single-world ``make_step`` (A6), rollouts under
-checkpointing (A4, with the backward).
+backtrack (ROADMAP A6), the single-world ``make_step`` (A6).
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from lcp_physics_tpu_torch.core.geometry import (any_aabb_overlap,
                                                  find_contacts,
@@ -122,6 +126,8 @@ def make_assemble(static: SceneStatic, config: SimConfig):
         contacts = find_contacts(states.p, params.verts, params.radius,
                                  counts, pairs, C,
                                  margin=_margin(params, states, dt_w))
+        if config.stop_contact_grad:
+            contacts = type(contacts)(*(x.detach() for x in contacts))
         if C == 0:
             return contacts, None
         mask = contacts.valid.to(states.p.dtype)
@@ -233,7 +239,8 @@ def make_step_batched(static: SceneStatic, config: SimConfig = SimConfig(),
                   not_improved_lim=config.solver_stall_lim,
                   gondzio=config.solver_gondzio,
                   stall_rtol=config.solver_stall_rtol, gamma_rows=C,
-                  fric_pair=(config.fric_dirs == 2))
+                  fric_pair=(config.fric_dirs == 2),
+                  factor_precision=config.solver_factor_precision)
 
     def solve_with_contacts(params, states, eq, dt_w):
         contacts, rmask = assemble.contacts(params, states, dt_w)
@@ -301,11 +308,20 @@ def make_step_batched(static: SceneStatic, config: SimConfig = SimConfig(),
     return step_b
 
 
-def rollout(step, params, state, dt, n_steps, with_diagnostics=False):
+def rollout(step, params, state, dt, n_steps, remat=False,
+            with_diagnostics=False):
     """Roll the world forward ``n_steps`` (a Python loop in place of
     ``lax.scan``).  Returns (final_state, trajectory) with every
     intermediate :class:`WorldState` stacked on a leading time axis, plus
-    the :class:`RolloutDiagnostics` with ``with_diagnostics=True``."""
+    the :class:`RolloutDiagnostics` with ``with_diagnostics=True``.
+
+    ``remat=True`` runs each step under ``torch.utils.checkpoint`` (the
+    JAX package's ``jax.checkpoint`` per step): the backward recomputes a
+    step's forward instead of keeping its activations."""
+    if remat:
+        plain = step
+        step = lambda pr, s, dt_: torch.utils.checkpoint.checkpoint(
+            plain, pr, s, dt_, use_reentrant=False)
     zf = torch.zeros_like(state.t)
     zi = torch.zeros(state.t.shape, dtype=torch.int32, device=state.t.device)
     rd = RolloutDiagnostics(zf, zf, zi, zi)

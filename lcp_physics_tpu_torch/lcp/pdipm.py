@@ -1,6 +1,5 @@
 r"""Mehrotra predictor-corrector primal-dual interior-point solver for the
-mixed LCP of contact dynamics — the part of it the engine's forward step
-runs.
+mixed LCP of contact dynamics — the engine layout of it.
 
 Counterpart of ``lcp_physics_tpu/lcp/pdipm.py``.  Problem (batched):
 
@@ -9,15 +8,20 @@ Counterpart of ``lcp_physics_tpu/lcp/pdipm.py``.  Problem (batched):
                  A z = b
 
 Ported: the engine layout (diagonal Q, ``ConeF`` friction coupling, the
-friction-cone slack rows eliminated, the friction-pair rotation), i.e. the
-initial Newton solve through the rotated Schur factor (dense branch of
-``_rot_factor_factory``: ``ops.linalg.plu_factor`` / ``plu_solve``) and the
-fused whole-IPM loop (``ops.ipm.fused_ipm``) for K = 2C + q <= 48.
+friction-cone slack rows eliminated, the friction-pair rotation).  The
+rotated Schur system (K2 = 2C + q rows) is formed whole and factored by
+the lane LU (``ops.linalg``, K2 <= 88) or by the blocked LU over
+128-panels (K2 > 88), and solved both ways (trans=0 for the iterations,
+trans=1 for the implicit backward).  After the initial Newton solve the
+iterations run in the fused whole-IPM kernel (``ops.ipm.fused_ipm``) when
+K2 <= 48, and otherwise in the packed unfused loop of the JAX package,
+which reads one flag per iteration back to the host to stop once every
+world is done (``HOST_READS`` counts those reads).
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item:
-the unfused packed loop with pivoted LU, ``refine`` and ``gondzio`` (A3),
-dense or non-diagonal Q (A3), systems without the friction-pair structure
-(A3, B2b), and Schur systems past the lane LU (B3).
+``refine``, ``gondzio`` and the explicit-inverse solve mode, dense Q, a
+dense F, ``m == 0`` and the systems without the friction-pair structure
+(A3, B2b).
 """
 from __future__ import annotations
 
@@ -28,6 +32,9 @@ import torch
 
 from lcp_physics_tpu_torch.lcp.cone import ConeF
 from lcp_physics_tpu_torch.ops import ipm, linalg
+
+HOST_READS = {"ipm_loop": 0}
+_SQ2 = math.sqrt(2.0)
 
 
 class PdipmSolution(NamedTuple):
@@ -50,59 +57,104 @@ def _unported(item, what):
     return NotImplementedError(f"ROADMAP {item}: {what} is not ported yet")
 
 
-def _rot_factor_factory(operands, F, reg):
-    r"""KKT solve operator factory ``factor(d_inv) -> solve(rhs)`` for the
-    engine layout with the gamma rows and the friction-pair rotation
-    eliminated (the JAX package's ``_rot_factor_factory``, dense branch;
-    the caller guarantees the layout).  ``operands`` = (P, Ghat, Q^-1) from
-    ``ops.ipm.rot_operands``.
+def _rot_factor_factory(operands, F, reg, factor_precision=None):
+    r"""KKT solve operator factory ``factor(d_inv) -> solve`` for the engine
+    layout with the gamma rows and the friction-pair rotation eliminated
+    (the JAX package's ``_rot_factor_factory`` at ``refine=0``; the caller
+    guarantees the layout).  ``operands`` = (P2, Ghat2, Q^-1) from
+    ``ops.ipm.rot_operands``; ``factor_precision='highest'`` (or
+    ``'float32'``) sends float32 panel inverses of the blocked factor to
+    the scalar Gauss-Jordan kernel.
 
     Kept rows [c (C), f1 (C), f2 (C), q] rotate to core rows
     [c (C), v (C), q], K2 = 2C + q, with u = (f1+f2)/sqrt2 and the gamma
     rows eliminated in closed form.  The factored system is
     S2 = -Ghat2 Q^-1 Ghat2^T - diag(dmain) + (v-row, c-col) band, with
     Ghat2 = [G_c; sqrt2 G_f1; A].
+
+    ``solve(rhs, trans=0)`` returns [z; w] for K [z; w] = rhs (trans=0) or
+    K^T [z; w] = rhs (trans=1); ``solve.reduced(rhs, trans, r1_zero)``
+    returns (w, wk) without the z block (``r1_zero``: the caller
+    guarantees rhs[:, :n] == 0) and ``solve.z_from(r1, wk)`` recovers z.
+    ``factor.residual_ops`` are the compact residual products
+    (G z | A z) and G^T lam + A^T nu over Ghat2.
     """
     P2, Ghat2, qinv = operands
     n = qinv.shape[-1]
     C_ = F.C
     mg, m = 3 * C_, 4 * C_
-    K2 = P2.shape[-1]
-    if K2 > linalg.MAX_LANE_N:
-        raise _unported("B3", f"the blocked KKT factor (K2={K2})")
-    sq2 = math.sqrt(2.0)
     v_, mu_v = F.valid, F.mu
+    exact = factor_precision in ("highest", "float32")
 
     def factor_rot(d_inv):
         rs = ipm.rot_schur(P2, d_inv, mu_v, v_, C_, reg)
-        fac = linalg.plu_factor(rs.S)
+        fac = linalg.plu_factor(rs.S, exact)
+        Dginv, cn, delta, g_u = rs.Dginv, rs.cn, rs.delta, rs.g_u
 
-        def solve(rhs):
-            """[z; w] for K [z; w] = rhs (rhs (B, n + m + q))."""
+        def reduced(rhs, trans=0, r1_zero=False):
             r1, r2 = rhs[:, :n], rhs[:, n:]
             r_c, r_f1, r_f2 = (r2[:, :C_], r2[:, C_:2 * C_],
                                r2[:, 2 * C_:3 * C_])
             rg, r_q = r2[:, mg:m], r2[:, m:]
-            ru = (r_f1 + r_f2) / sq2
-            rv = (r_f1 - r_f2) / sq2
-            y = torch.einsum("bkn,bn->bk", Ghat2, qinv * r1)
-            t_c = r_c - y[:, :C_]
-            t_v = rv - y[:, C_:2 * C_]
-            t_q = r_q - y[:, 2 * C_:]
-            tD = rs.Dginv * rg
-            t_u = ru - sq2 * v_ * tD
-            rhs2 = torch.cat([t_c, t_v - (rs.delta / rs.g_u) * t_u, t_q], -1)
-            wk = linalg.plu_solve(fac, rhs2)
-            w_c, w_v, w_q = wk[:, :C_], wk[:, C_:2 * C_], wk[:, 2 * C_:]
-            w_u = (t_u - sq2 * rs.cn * w_c - rs.delta * w_v) / rs.g_u
-            wg = -rs.Dginv * (rg - (-mu_v * w_c + sq2 * v_ * w_u))
-            w_f1 = (w_u + w_v) / sq2
-            w_f2 = (w_u - w_v) / sq2
-            z = qinv * (r1 - torch.einsum("bkn,bk->bn", Ghat2, wk))
-            return torch.cat([z, w_c, w_f1, w_f2, wg, w_q], -1)
+            ru = (r_f1 + r_f2) / _SQ2
+            rv = (r_f1 - r_f2) / _SQ2
+            if r1_zero:
+                t_c, t_v, t_q = r_c, rv, r_q
+            else:
+                y = torch.einsum("bkn,bn->bk", Ghat2, qinv * r1)
+                t_c = r_c - y[:, :C_]
+                t_v = rv - y[:, C_:2 * C_]
+                t_q = r_q - y[:, 2 * C_:]
+            tD = Dginv * rg
+            if trans == 0:
+                t_u = ru - _SQ2 * v_ * tD
+                rhs2 = torch.cat([t_c, t_v - (delta / g_u) * t_u, t_q], -1)
+                wk = linalg.plu_solve(fac, rhs2, 0)
+                w_c, w_v = wk[:, :C_], wk[:, C_:2 * C_]
+                w_u = (t_u - _SQ2 * cn * w_c - delta * w_v) / g_u
+                wg = -Dginv * (rg - (-mu_v * w_c + _SQ2 * v_ * w_u))
+            else:
+                # S'^T: the gamma coupling's transpose, then u eliminated
+                # from the transposed (u-row [0, g_u, delta]) system
+                t_c = t_c - mu_v * tD
+                t_u = ru + _SQ2 * v_ * tD
+                rhs2 = torch.cat([t_c - _SQ2 * cn * t_u / g_u,
+                                  t_v - (delta / g_u) * t_u, t_q], -1)
+                wk = linalg.plu_solve(fac, rhs2, 1)
+                w_v = wk[:, C_:2 * C_]
+                w_c = wk[:, :C_]
+                w_u = (t_u - delta * w_v) / g_u
+                wg = -Dginv * (rg + _SQ2 * v_ * w_u)
+            w_full = torch.cat([w_c, (w_u + w_v) / _SQ2, (w_u - w_v) / _SQ2,
+                                wg, wk[:, 2 * C_:]], -1)
+            return w_full, wk
 
+        def z_from(r1, wk):
+            # the same for trans 0 and 1: the coupling blocks are Ghat2 and
+            # Ghat2^T, exact transposes
+            return qinv * (r1 - torch.einsum("bkn,bk->bn", Ghat2, wk))
+
+        def solve(rhs, trans=0):
+            w_full, wk = reduced(rhs, trans)
+            return torch.cat([z_from(rhs[:, :n], wk), w_full], -1)
+
+        solve.reduced = reduced
+        solve.z_from = z_from
         return solve
 
+    def res_down(z):
+        y = torch.einsum("bkn,bn->bk", Ghat2, z)
+        gf1 = y[:, C_:2 * C_] / _SQ2
+        return torch.cat([y[:, :C_], gf1, -gf1, torch.zeros_like(y[:, :C_]),
+                          y[:, 2 * C_:]], -1)
+
+    def res_up(lam, nu):
+        u = torch.cat([lam[:, :C_],
+                       (lam[:, C_:2 * C_] - lam[:, 2 * C_:3 * C_]) / _SQ2,
+                       nu], -1)
+        return torch.einsum("bkn,bk->bn", Ghat2, u)
+
+    factor_rot.residual_ops = (res_down, res_up)
     return factor_rot
 
 
@@ -117,11 +169,9 @@ def _expand_batch(arrays, base_rank):
     return batched, out
 
 
-def initial_point(operands, p, h, b, F, row_mask, consts):
-    """The solver's starting iterate (z, s, lam, nu): one Newton step from
-    the origin with d_inv = 1 through the rotated KKT factor, then (s, lam)
-    shifted into the strict interior and the padded rows pinned.
-    ``operands`` = ``ops.ipm.rot_operands(q_diag, G, A, F.C)``."""
+def _start(kkt_factor, p, h, b, row_mask, consts):
+    """One Newton step from the origin with d_inv = 1, then (s, lam)
+    shifted into the strict interior and the padded rows pinned."""
     B, n = p.shape
     m = h.shape[-1]
     maskb = row_mask > 0
@@ -129,7 +179,6 @@ def initial_point(operands, p, h, b, F, row_mask, consts):
     def masked_min(x):
         return torch.where(maskb, x, float("inf")).amin(-1)
 
-    kkt_factor = _rot_factor_factory(operands, F, consts["reg"])
     ones_m = torch.ones((B, m), dtype=p.dtype, device=p.device)
     sol0 = kkt_factor(ones_m)(torch.cat([-p, h, b], -1))
     z, lam, nu = sol0[:, :n], sol0[:, n:n + m], sol0[:, n + m:]
@@ -141,16 +190,161 @@ def initial_point(operands, p, h, b, F, row_mask, consts):
     return z, s, lam, nu
 
 
+def initial_point(operands, p, h, b, F, row_mask, consts):
+    """The solver's starting iterate (z, s, lam, nu) through the rotated KKT
+    factor.  ``operands`` = ``ops.ipm.rot_operands(q_diag, G, A, F.C)``."""
+    return _start(_rot_factor_factory(operands, F, consts["reg"]),
+                  p, h, b, row_mask, consts)
+
+
+def _max_step(v, dv, mask):
+    """Per-instance largest alpha in (0, 1] with v + alpha dv >= 0 on the
+    ``mask`` rows."""
+    neg = (dv < 0) & mask
+    ratio = torch.where(neg, -v / torch.where(neg, dv, -1.0), float("inf"))
+    return torch.clamp(ratio.amin(-1), max=1.0)
+
+
+def unfused_loop(kkt_factor, q_diag, p, h, b, F, row_mask, z, s, lam, nu, *,
+                 max_iter, tol, consts, not_improved_lim, stall_rtol):
+    """The packed unfused interior-point loop of the JAX package from the
+    iterate (z, s, lam, nu): the state is one (B, n + 2m + q) tensor
+    X = [z | s | lam | nu]; per iteration one factor of the rotated Schur
+    system, the predictor solve and the corrector as a delta solve, one
+    z-recovery, the 0.99 step, the floor clamp, the pin of padded rows and
+    the divergence guard; stall counter, ``stall_rtol``, best-iterate
+    return.  Stops after ``max_iter`` iterations or once every world is
+    done (one host read per iteration).  Returns a :class:`PdipmSolution`.
+    """
+    B, n = p.shape
+    m, q = h.shape[-1], b.shape[-1]
+    dt, dev = p.dtype, p.device
+    tiny = consts["tiny"]
+    res_down, res_up = kkt_factor.residual_ops
+    maskb = row_mask > 0
+    maskf = row_mask.to(dt)
+    rcount = torch.clamp(maskf.sum(-1), min=1.0)
+    L = n + 2 * m + q
+    zs, ss, ls, nus = (slice(0, n), slice(n, n + m),
+                       slice(n + m, n + 2 * m), slice(n + 2 * m, L))
+    sls = slice(n, n + 2 * m)
+    ones_n = torch.ones((B, n), dtype=torch.bool, device=dev)
+    ones_q = torch.ones((B, q), dtype=torch.bool, device=dev)
+    fmax = torch.finfo(dt).max
+    floor_row = torch.cat([torch.full((n,), -fmax, dtype=dt, device=dev),
+                           torch.full((2 * m,), tiny, dtype=dt, device=dev),
+                           torch.full((q,), -fmax, dtype=dt, device=dev)])
+    pinm = torch.cat([ones_n, maskb, maskb, ones_q], -1)
+    pinv = torch.cat([torch.zeros((B, n), dtype=dt, device=dev), h,
+                      torch.full((B, m), tiny, dtype=dt, device=dev),
+                      torch.zeros((B, q), dtype=dt, device=dev)], -1)
+    rmask = torch.cat([ones_n, maskb, ones_q], -1)
+    mask2 = torch.cat([maskb, maskb], -1)
+
+    def comp_mu(s, lam):
+        return (s * lam * maskf).sum(-1) / rcount
+
+    def residuals(X):
+        z, s, lam, nu = X[:, zs], X[:, ss], X[:, ls], X[:, nus]
+        ga = res_down(z)
+        rx = q_diag * z + p + res_up(lam, nu)
+        rz = ga[:, :m] + F.matvec(lam) + s - h
+        ry = ga[:, m:] - b
+        return torch.cat([rx, rz, ry], -1)
+
+    def resid_norm(r):
+        return torch.where(rmask, r, 0.0).abs().amax(-1)
+
+    def merit_of(X):
+        r = residuals(X)
+        return comp_mu(X[:, ss], X[:, ls]) + resid_norm(r), r
+
+    X = torch.cat([z, s, lam, nu], -1)
+    bestX = X
+    best_merit = torch.full((B,), fmax / 8, dtype=dt, device=dev)
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    iters = torch.full((B,), max_iter, dtype=torch.int32, device=dev)
+    stall = torch.zeros(B, dtype=torch.int32, device=dev)
+    for i in range(max_iter):
+        if i:
+            HOST_READS["ipm_loop"] += 1
+            if bool(done.all()):
+                break
+        merit, r = merit_of(X)
+        s, lam = X[:, ss], X[:, ls]
+        mu = comp_mu(s, lam)
+        improved = merit < best_merit
+        bestX = torch.where(improved[:, None], X, bestX)
+        sig = (merit < best_merit * (1.0 - stall_rtol) if stall_rtol > 0
+               else improved)
+        best_merit = torch.minimum(merit, best_merit)
+        stall = torch.where(sig, 0, stall + 1)
+        if not_improved_lim > 0 and i >= not_improved_lim + 2:
+            stalled = stall >= not_improved_lim
+        else:
+            stalled = torch.zeros_like(done)
+        new_done = done | (merit < tol) | stalled
+        iters = torch.where(new_done & ~done, i, iters)
+
+        lam_safe = torch.clamp(lam, min=tiny)
+        d_inv = torch.clamp(s / lam_safe, consts["dinv_min"],
+                            consts["dinv_max"])
+        kkt_solve = kkt_factor(d_inv)
+
+        # predictor: rhs = -r with the complementarity term on the rz rows
+        r4 = s * lam
+        rhs_aff = -r
+        rhs_aff[:, n:n + m] += r4 / lam_safe
+        wa_full, wk_a = kkt_solve.reduced(rhs_aff)
+        dlam_a = wa_full[:, :m]
+        ds_a = -r4 / lam_safe - d_inv * dlam_a
+        dsl_a = torch.cat([ds_a, dlam_a], -1)
+        sl = X[:, sls]
+        alpha_a = _max_step(sl, dsl_a, mask2)
+        sl_aff = sl + alpha_a[:, None] * dsl_a
+        mu_aff = comp_mu(sl_aff[:, :m], sl_aff[:, m:])
+        sigma = torch.clamp(mu_aff / torch.clamp(mu, min=tiny), 0.0,
+                            1.0) ** 3
+
+        # corrector, solved as a delta on the predictor (r1 block zero)
+        r4c = r4 + ds_a * dlam_a - (sigma * mu)[:, None]
+        rhs_d = torch.zeros_like(r)
+        rhs_d[:, n:n + m] = (r4c - r4) / lam_safe
+        wd_full, wk_d = kkt_solve.reduced(rhs_d, r1_zero=True)
+        w_full = wa_full + wd_full
+        dlam = w_full[:, :m]
+        ds = -r4c / lam_safe - d_inv * dlam
+        dz = kkt_solve.z_from(rhs_aff[:, :n], wk_a + wk_d)
+        dX = torch.cat([dz, ds, dlam, w_full[:, m:]], -1)
+        alpha = 0.99 * _max_step(sl, dX[:, sls], mask2)
+
+        X_n = torch.maximum(X + alpha[:, None] * dX, floor_row)
+        X_n = torch.where(pinm, X_n, pinv)
+        bad = ~torch.isfinite(X_n).all(-1)     # divergence guard
+        halt = new_done | bad
+        X = torch.where(halt[:, None], X, X_n)
+        done = done | halt
+
+    # the best iterate seen (non-monotone tails)
+    final_merit, _ = merit_of(X)
+    X = torch.where((best_merit < final_merit)[:, None], bestX, X)
+    z, s, lam, nu = X[:, zs], X[:, ss], X[:, ls], X[:, nus]
+    return PdipmSolution(z, s, lam, nu, comp_mu(s, lam),
+                         resid_norm(residuals(X)), iters)
+
+
 def pdipm_solve(Q, p, G, h, A, b, F, *, max_iter=20, tol=1e-7,
                 q_is_diag=None, gamma_rows=0, row_mask=None, refine=0,
                 not_improved_lim=3, fric_pair=False, gondzio=0,
-                stall_rtol=0.0):
+                stall_rtol=0.0, factor_precision=None):
     """Solve a batch of mixed-LCP instances (single instances are promoted
     to a batch of one and squeezed back).  Same arguments and semantics as
     the JAX package's ``pdipm_solve`` for the ported layout (module
     docstring); ``row_mask`` (B, m) is 1.0 on real inequality rows and 0.0
-    on padding, which is pinned at s = h, lam = tiny.  Returns a
-    :class:`PdipmSolution`."""
+    on padding, which is pinned at s = h, lam = tiny.
+    ``factor_precision='highest'`` (or ``'float32'``) sends the blocked
+    factor's float32 panel inverses to the scalar Gauss-Jordan kernel, as
+    in the JAX package.  Returns a :class:`PdipmSolution`."""
     diag_form = (Q.shape == p.shape if q_is_diag is None
                  else bool(q_is_diag))
     if not diag_form:
@@ -158,7 +352,8 @@ def pdipm_solve(Q, p, G, h, A, b, F, *, max_iter=20, tol=1e-7,
     if not isinstance(F, ConeF):
         raise _unported("A3", "the solver for a dense F")
     if refine or gondzio:
-        raise _unported("A3", "refine/gondzio (the unfused loop)")
+        raise _unported("A3", "refine/gondzio (and the explicit-inverse "
+                        "solve mode refine selects)")
     batched, (Q, p, G, h, A, b, mu_f, v_f) = _expand_batch(
         (Q, p, G, h, A, b, F.mu, F.valid), (1, 1, 2, 1, 2, 1, 1, 1))
     F = ConeF(mu_f, v_f, F.fd)
@@ -169,22 +364,27 @@ def pdipm_solve(Q, p, G, h, A, b, F, *, max_iter=20, tol=1e-7,
     if m == 0 or max_iter <= 0:
         raise _unported("A3", "the solver without inequality rows or "
                         "iterations")
-    if not (gamma_rows == F.C and fric_pair and ipm.fused_supported(
-            m - F.C, q, F.C, F.fd, fric_pair=True)):
-        raise _unported("A3/B2b", "the unfused interior-point loop (for "
-                        "systems past the rotated fused kernel's K = 2C + q "
-                        f"<= {ipm.MAX_FUSED_K}) and the unrotated fused "
-                        "kernel")
+    if not (gamma_rows == F.C and fric_pair and F.fd == 2 and m == 4 * F.C):
+        raise _unported("A3/B2b", "the solver for systems without the "
+                        "friction-pair rotation (the plain gamma "
+                        "elimination and the unrotated fused kernel)")
     if row_mask is None:
         row_mask = torch.ones((B, m), dtype=dt, device=p.device)
     row_mask = row_mask.expand(B, m).to(dt)
     operands = ipm.rot_operands(Q, G, A, F.C)
-    z, s, lam, nu = initial_point(operands, p, h, b, F, row_mask, consts)
-    sol = PdipmSolution(*ipm.fused_ipm(
-        operands, p, h, b, F.mu, F.valid, row_mask, z, s, lam, nu,
-        C=F.C, fd=F.fd, max_iter=max_iter, tol=tol, consts=consts,
-        not_improved_lim=not_improved_lim, fric_pair=True,
-        stall_rtol=float(stall_rtol)))
+    kkt_factor = _rot_factor_factory(operands, F, consts["reg"],
+                                     factor_precision)
+    z, s, lam, nu = _start(kkt_factor, p, h, b, row_mask, consts)
+    kw = dict(max_iter=max_iter, tol=tol, consts=consts,
+              not_improved_lim=not_improved_lim,
+              stall_rtol=float(stall_rtol))
+    if ipm.fused_supported(m - F.C, q, F.C, F.fd, fric_pair=True):
+        sol = PdipmSolution(*ipm.fused_ipm(
+            operands, p, h, b, F.mu, F.valid, row_mask, z, s, lam, nu,
+            C=F.C, fd=F.fd, fric_pair=True, **kw))
+    else:
+        sol = unfused_loop(kkt_factor, Q, p, h, b, F, row_mask, z, s, lam,
+                           nu, **kw)
     if not batched:
         sol = PdipmSolution(*(x[0] for x in sol))
     return sol

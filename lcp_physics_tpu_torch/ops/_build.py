@@ -27,7 +27,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _libs: dict[str, ctypes.CDLL] = {}
-_lock = threading.Lock()
+_lock = threading.Lock()                  # guards _locks
+_locks: dict[str, threading.Lock] = {}    # one per library: builds overlap
 
 
 def _nvcc():
@@ -50,8 +51,11 @@ def _source_key(name):
 
 
 def load(name) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library of ``csrc/<name>.cu``, built first if needed.
+    Thread-safe; libraries of different sources build concurrently."""
     with _lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         lib = _libs.get(name)
         if lib is not None:
             return lib

@@ -26,7 +26,7 @@ import torch
 
 from lcp_physics_tpu_torch.lcp.cone import ConeF
 from lcp_physics_tpu_torch.ops import _build
-from lcp_physics_tpu_torch.ops.linalg import _safe_inv
+from lcp_physics_tpu_torch.ops.linalg import gj_inv_ref
 
 MAX_FUSED_K = 48
 LAUNCHES = {"fused_ipm": 0}
@@ -154,16 +154,7 @@ def _loop_ref(P, Ghat, qinv, p, h, b, mu_v, valid, row_mask, z, s, lam, nu,
         d_inv = torch.clamp(s / lam_safe, consts["dinv_min"],
                             consts["dinv_max"])
         rs = rot_schur(P, d_inv, mu_v, valid, C, reg)
-        S = rs.S
-        for k in range(S.shape[-1]):
-            dinv = _safe_inv(S[:, k, k])[:, None]
-            row, col = S[:, k, :], S[:, :, k]
-            newrow = row * dinv
-            Snew = S - col[:, :, None] * newrow[:, None, :]
-            Snew[:, :, k] = -col * dinv
-            Snew[:, k, :] = newrow
-            Snew[:, k, k] = dinv[:, 0]
-            S = Snew
+        S = gj_inv_ref(rs.S)
 
         def solve_S(rhs):
             x = torch.einsum("bij,bj->bi", S, rhs)

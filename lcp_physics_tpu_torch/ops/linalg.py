@@ -1,32 +1,52 @@
-"""Pivotless LU factorization and substitution for batches of small systems.
+"""Pivotless LU factorization, substitution and Gauss-Jordan panel inverses
+for batches of small and medium systems.
 
-Counterpart of the lane path of ``lcp_physics_tpu/ops/linalg.py``
-(``plu_factor`` / ``plu_solve`` for n <= ``MAX_LANE_N``).  The factor is the
-in-place Doolittle LU without pivoting, which is stable for the regularized
-quasi-definite KKT matrices the interior-point solver produces.
+Counterpart of ``lcp_physics_tpu/ops/linalg.py``.  Pivotless elimination
+is stable here because the regularized KKT matrices the interior-point
+solver produces are quasi-definite.  Two factor layouts, chosen by size
+with the JAX package's boundary:
 
-Each public function dispatches on the device of its tensors: on a CUDA
-tensor it launches the hand-written kernel of ``csrc/lu.cu`` (and raises if
-that fails); on a CPU tensor it runs the plain torch version
-(``plu_factor_ref`` / ``plu_solve_ref``), which transcribes the same
-algorithm.  ``LAUNCHES`` counts the kernel launches.
+* lane (n <= ``MAX_LANE_N``): the in-place Doolittle LU, a (B, n, n)
+  tensor holding the strictly-lower unit-L and the upper U
+  (``lu_factor`` / ``lu_solve``, the kernels of ``csrc/lu.cu``);
+* blocked (``MAX_LANE_N`` < n <= ``MAX_BLOCKED_N``): the right-looking
+  block LU over ``PANEL``-wide panels with full inverses of the diagonal
+  panels (:class:`BlockedFactor`).  Its only sequential work is the panel
+  inverse (``_gj_inverse``): the rank-16 blocked Gauss-Jordan kernel
+  ``gj_inv_blocked`` at float32, under a two-level split of each
+  128-panel into two 64-panels, and the scalar Gauss-Jordan kernel
+  ``gj_inv`` at float64 or when ``exact`` is asked for (both in
+  ``csrc/gj_inv.cu``).  The panel products around them are
+  ``torch.matmul`` in the input dtype, as the JAX package leaves them to
+  XLA.
 
-The factor is the (B, n, n) tensor holding the strictly-lower unit-L and
-the upper U.  Systems larger than ``MAX_LANE_N`` go to the JAX package's
-blocked factor, which is not ported yet (ROADMAP B3).
+``plu_factor`` / ``plu_solve`` route by size.  Each kernel wrapper
+dispatches on the device of its tensors: on a CUDA tensor it launches the
+hand-written kernel (and raises if that fails); on a CPU tensor it runs
+the plain torch version of the same algorithm (the ``*_ref`` functions).
+``LAUNCHES`` counts the kernel launches, trans=1 substitutions apart.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from lcp_physics_tpu_torch.ops import _build
 
 MAX_LANE_N = 88
-LAUNCHES = {"lu": 0, "solve": 0}
+PANEL = 128
+MAX_BLOCKED_N = 1536
+GJ_BLOCK = 16
+LAUNCHES = {"lu": 0, "solve": 0, "solve_t": 0, "gj_inv_blocked": 0,
+            "gj_inv": 0}
 
 _CT = {torch.float32: "f32", torch.float64: "f64"}
+
+
+def _ru(x, m):
+    return (x + m - 1) // m * m
 
 
 def _safe_inv(d):
@@ -36,12 +56,20 @@ def _safe_inv(d):
     return 1.0 / safe
 
 
-def _check_size(n):
-    if n > MAX_LANE_N:
+def blocked_path(n):
+    """Whether an n-row system takes the blocked factor (the JAX package's
+    ``_ru(n, 8) > MAX_LANE_N`` rule); past ``MAX_BLOCKED_N`` it raises."""
+    if n > MAX_BLOCKED_N:
         raise NotImplementedError(
-            f"ROADMAP B3: n={n} > MAX_LANE_N={MAX_LANE_N} needs the blocked "
-            "LU and its Gauss-Jordan panel kernel, not ported yet")
+            f"ROADMAP A3: n={n} > MAX_BLOCKED_N={MAX_BLOCKED_N} needs the "
+            "pivoted 'xla' LU, not ported yet")
+    return _ru(n, 8) > MAX_LANE_N
 
+
+# ---------------------------------------------------------------------------
+# Plain torch versions of the kernels (CPU tensors, and the comparison path
+# on the card).
+# ---------------------------------------------------------------------------
 
 def plu_factor_ref(K):
     """Plain torch pivotless LU of K (B, n, n), vectorized over B."""
@@ -74,7 +102,68 @@ def plu_solve_ref(lu, r, trans=0):
     return x
 
 
-def _lib():
+def _gj_steps(A, ks):
+    """In-place scalar Gauss-Jordan pivot steps ``ks`` on A (B, P, P): per
+    pivot k, row k is scaled by 1/A[k, k], every other entry loses
+    A[i, k] * row[j], column k becomes -A[i, k]/A[k, k] and the pivot
+    1/A[k, k].  After all P steps A holds K^-1 (the [K | I] augmented
+    elimination, stored in place)."""
+    for k in ks:
+        dinv = _safe_inv(A[:, k, k])[:, None]
+        col = A[:, :, k].clone()
+        row = A[:, k, :] * dinv
+        A -= col[:, :, None] * row[:, None, :]
+        A[:, :, k] = -col * dinv
+        A[:, k, :] = row
+        A[:, k, k] = dinv[:, 0]
+    return A
+
+
+def gj_inv_ref(K):
+    """Plain torch scalar Gauss-Jordan inverse of (B, P, P) panels, one
+    pivot per step, no pivoting (the algorithm of ``gj_inv``)."""
+    return _gj_steps(K.clone(), range(K.shape[-1]))
+
+
+def gj_inv_blocked_ref(K):
+    """Plain torch rank-16 blocked Gauss-Jordan inverse of (B, P, P)
+    panels, P % 16 == 0 (the algorithm of ``gj_inv_blocked``).  Per block
+    step kb, with pivot block column C = A[:, kb:kb+16] and pivot block
+    D = A[kb:kb+16, kb:kb+16]: D^-1 by scalar Gauss-Jordan; R = D^-1
+    A[kb:kb+16, :] with its own block column set to exactly D^-1 (Rp); the
+    block column becomes -C Rp there, every other column A - C Rp, and the
+    pivot rows Rp."""
+    b = GJ_BLOCK
+    A = K.clone()
+    P = A.shape[-1]
+    for kb in range(0, P, b):
+        blk = slice(kb, kb + b)
+        C = A[:, :, blk].clone()
+        Dinv = _gj_steps(C[:, blk, :].clone(), range(b))
+        Rp = Dinv @ A[:, blk, :]
+        Rp[:, :, blk] = Dinv
+        upd = C @ Rp
+        A -= upd
+        A[:, :, blk] = -upd[:, :, blk]
+        A[:, blk, :] = Rp
+    return A
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers.
+# ---------------------------------------------------------------------------
+
+def _check_cuda(what, *ts):
+    for t in ts:
+        if t.dtype not in _CT:
+            raise TypeError(f"CUDA {what} takes float32/float64, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"CUDA {what} takes contiguous tensors")
+        if t.dtype != ts[0].dtype or t.device != ts[0].device:
+            raise ValueError(f"CUDA {what} operands differ in dtype or device")
+
+
+def _lu_lib():
     lib = _build.load("lu")
     if not getattr(lib, "_lcp_typed", False):
         P, I = ctypes.c_void_p, ctypes.c_int
@@ -87,28 +176,30 @@ def _lib():
     return lib
 
 
-def _check_cuda(*ts):
-    for t in ts:
-        if t.dtype not in _CT:
-            raise TypeError(f"CUDA LU takes float32/float64, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError("CUDA LU takes contiguous tensors")
-        if t.dtype != ts[0].dtype or t.device != ts[0].device:
-            raise ValueError("CUDA LU operands differ in dtype or device")
+def _gj_lib():
+    lib = _build.load("gj_inv")
+    if not getattr(lib, "_lcp_typed", False):
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.lcp_gj_inv_blocked_f32.argtypes = [P, P, I, I, P]
+        lib.lcp_gj_inv_blocked_f32.restype = I
+        for ct in ("f32", "f64"):
+            f = getattr(lib, f"lcp_gj_inv_{ct}")
+            f.argtypes, f.restype = [P, P, I, I, P], I
+        lib._lcp_typed = True
+    return lib
 
 
-def plu_factor(K):
+def lu_factor(K):
     """Pivotless LU of K (B, n, n), n <= MAX_LANE_N: the CUDA kernel on a
     GPU tensor, the plain version on a CPU tensor."""
     B, n = K.shape[0], K.shape[-1]
-    if K.shape[-2] != n:
-        raise ValueError(f"plu_factor needs square matrices, got {K.shape}")
-    _check_size(n)
+    if n > MAX_LANE_N:
+        raise ValueError(f"lu_factor takes n <= {MAX_LANE_N}, got {n}")
     if not K.is_cuda:
         return plu_factor_ref(K)
     K = K.contiguous()
-    _check_cuda(K)
-    lib = _lib()
+    _check_cuda("LU", K)
+    lib = _lu_lib()
     lu = torch.empty_like(K)
     rc = getattr(lib, f"lcp_lu_factor_{_CT[K.dtype]}")(
         _build.ptr(K), _build.ptr(lu), B, n, _build.stream_ptr(lib, K.device))
@@ -117,24 +208,200 @@ def plu_factor(K):
     return lu
 
 
-def plu_solve(lu, r, trans=0):
-    """Solve K x = r (trans=0) or K^T x = r (trans=1) from
-    :func:`plu_factor`'s result; r (B, n) -> (B, n)."""
+def lu_solve(lu, r, trans=0):
+    """K x = r (trans=0) or K^T x = r (trans=1) from :func:`lu_factor`'s
+    result: the CUDA kernel on a GPU tensor, the plain version on a CPU
+    tensor."""
     B, n = r.shape
-    if lu.shape != (B, n, n):
-        raise ValueError(f"factor {tuple(lu.shape)} does not match rhs {(B, n)}")
-    if trans not in (0, 1):
-        raise ValueError(f"trans must be 0 or 1, got {trans}")
-    _check_size(n)
     if not r.is_cuda:
         return plu_solve_ref(lu, r, trans)
     r = r.contiguous()
-    _check_cuda(lu, r)
-    lib = _lib()
+    _check_cuda("LU", lu, r)
+    lib = _lu_lib()
     x = torch.empty_like(r)
     rc = getattr(lib, f"lcp_lu_solve_{_CT[r.dtype]}")(
         _build.ptr(lu), _build.ptr(r), _build.ptr(x), B, n, int(trans),
         _build.stream_ptr(lib, r.device))
     _build.check(lib, rc, "lu_solve")
-    LAUNCHES["solve"] += 1
+    LAUNCHES["solve_t" if trans else "solve"] += 1
     return x
+
+
+def _check_panels(K, what, block=1):
+    B, P = K.shape[0], K.shape[-1]
+    if K.dim() != 3 or K.shape[1] != P or P > PANEL or P % block:
+        raise ValueError(f"{what} takes (B, P, P) panels with P <= {PANEL}"
+                         f" and P % {block} == 0, got {tuple(K.shape)}")
+    return B, P
+
+
+def gj_inv_blocked(K):
+    """Rank-16 blocked Gauss-Jordan inverse of float32 (B, P, P) panels:
+    the CUDA kernel on a GPU tensor, the plain version on a CPU tensor."""
+    B, P = _check_panels(K, "gj_inv_blocked", GJ_BLOCK)
+    if not K.is_cuda:
+        return gj_inv_blocked_ref(K)
+    if K.dtype != torch.float32:
+        raise TypeError(f"gj_inv_blocked takes float32, got {K.dtype}")
+    K = K.contiguous()
+    lib = _gj_lib()
+    out = torch.empty_like(K)
+    rc = lib.lcp_gj_inv_blocked_f32(_build.ptr(K), _build.ptr(out), B, P,
+                                    _build.stream_ptr(lib, K.device))
+    _build.check(lib, rc, "gj_inv_blocked")
+    LAUNCHES["gj_inv_blocked"] += 1
+    return out
+
+
+def gj_inv(K):
+    """Scalar Gauss-Jordan inverse of (B, P, P) panels, float32 or float64:
+    the CUDA kernel on a GPU tensor, the plain version on a CPU tensor."""
+    B, P = _check_panels(K, "gj_inv")
+    if not K.is_cuda:
+        return gj_inv_ref(K)
+    K = K.contiguous()
+    _check_cuda("gj_inv", K)
+    lib = _gj_lib()
+    out = torch.empty_like(K)
+    rc = getattr(lib, f"lcp_gj_inv_{_CT[K.dtype]}")(
+        _build.ptr(K), _build.ptr(out), B, P,
+        _build.stream_ptr(lib, K.device))
+    _build.check(lib, rc, "gj_inv")
+    LAUNCHES["gj_inv"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The blocked factor (plain torch around the panel kernels).
+# ---------------------------------------------------------------------------
+
+class BlockedFactor(NamedTuple):
+    """Block LU K = Lhat Uhat over PANEL-wide panels: ``blocks[t][s]`` the
+    (B, P, P) off-diagonal blocks (Lhat below, Uhat above the diagonal;
+    Uhat has identity diagonal blocks), ``binv`` (B, T, P, P) the inverses
+    of Lhat's diagonal blocks, ``n`` the unpadded size."""
+
+    blocks: tuple
+    binv: torch.Tensor
+    n: int
+
+
+def _gj_inverse(K, exact=False):
+    """Inverse of (B, P, P) diagonal panels (quasi-definite: every leading
+    principal block is nonsingular).  float32 and not ``exact``: the
+    blocked kernel, a 128-panel split in two 64-panels by the block
+    inverse identity; otherwise the scalar kernel."""
+    P = K.shape[-1]
+    if not exact and K.dtype == torch.float32 and P % GJ_BLOCK == 0:
+        if P >= 128 and (P // 2) % GJ_BLOCK == 0:
+            H = P // 2
+            A_, B_ = K[:, :H, :H], K[:, :H, H:]
+            C_, D_ = K[:, H:, :H], K[:, H:, H:]
+            Ainv = _gj_inverse(A_)
+            X = Ainv @ B_
+            Y = C_ @ Ainv
+            Sinv = _gj_inverse(D_ - C_ @ X)
+            M21 = -(Sinv @ Y)
+            M12 = -(X @ Sinv)
+            M11 = Ainv - X @ M21
+            return torch.cat([torch.cat([M11, M12], -1),
+                              torch.cat([M21, Sinv], -1)], -2)
+        return gj_inv_blocked(K.contiguous())
+    return gj_inv(K.contiguous())
+
+
+def plu_factor_blocks(K, exact=False):
+    """Blocked factorization of K (B, n, n), n past the lane path: K padded
+    to a multiple of PANEL (identity on the padded diagonal), then the
+    right-looking block LU.  Returns a :class:`BlockedFactor`."""
+    B, n = K.shape[0], K.shape[-1]
+    if not blocked_path(n):
+        raise ValueError(f"plu_factor_blocks takes n > {MAX_LANE_N}, got {n}")
+    T = _ru(n, PANEL) // PANEL
+    Kp = K
+    if T * PANEL > n:
+        Kp = K.new_zeros((B, T * PANEL, T * PANEL))
+        Kp[:, :n, :n] = K
+        Kp.diagonal(dim1=1, dim2=2)[:, n:] = 1.0
+    blk = [[Kp[:, t * PANEL:(t + 1) * PANEL, s * PANEL:(s + 1) * PANEL]
+            for s in range(T)] for t in range(T)]
+    binvs = []
+    for t in range(T):
+        binv_t = _gj_inverse(blk[t][t], exact)
+        binvs.append(binv_t)
+        for s in range(t + 1, T):          # Uhat row: binv_t @ K[t, s]
+            blk[t][s] = binv_t @ blk[t][s]
+        for i in range(t + 1, T):          # trailing update
+            for s in range(t + 1, T):
+                blk[i][s] = blk[i][s] - blk[i][t] @ blk[t][s]
+    return BlockedFactor(tuple(tuple(row) for row in blk),
+                         torch.stack(binvs, dim=1), n)
+
+
+def _blocked_solve(fac, r, trans=0):
+    """Block substitution on a :class:`BlockedFactor`: one batched matvec
+    with each diagonal-panel inverse, unit-upper back substitution."""
+    blocks, binv, n = fac
+    T = len(blocks)
+    B = r.shape[0]
+    rp = r.new_zeros((B, T * PANEL))
+    rp[:, :n] = r
+    part = lambda t: rp[:, t * PANEL:(t + 1) * PANEL]
+    mv = lambda M, v: torch.einsum("bij,bj->bi", M, v)
+    mtv = lambda M, v: torch.einsum("bij,bi->bj", M, v)
+    xs = [None] * T
+    if trans == 0:
+        ys = []
+        for t in range(T):                 # Lhat y = r
+            acc = part(t)
+            for s in range(t):
+                acc = acc - mv(blocks[t][s], ys[s])
+            ys.append(mv(binv[:, t], acc))
+        for t in reversed(range(T)):       # Uhat x = y
+            acc = ys[t]
+            for s in range(t + 1, T):
+                acc = acc - mv(blocks[t][s], xs[s])
+            xs[t] = acc
+    else:
+        zs = []
+        for t in range(T):                 # Uhat^T z = r
+            acc = part(t)
+            for s in range(t):
+                acc = acc - mtv(blocks[s][t], zs[s])
+            zs.append(acc)
+        for t in reversed(range(T)):       # Lhat^T x = z
+            acc = zs[t]
+            for s in range(t + 1, T):
+                acc = acc - mtv(blocks[s][t], xs[s])
+            xs[t] = mtv(binv[:, t], acc)
+    return torch.cat(xs, dim=-1)[:, :n]
+
+
+def plu_factor(K, exact=False):
+    """Pivotless LU of K (B, n, n): the lane factor (a (B, n, n) tensor)
+    for n <= MAX_LANE_N, the blocked factor (:class:`BlockedFactor`) up to
+    MAX_BLOCKED_N.  ``exact`` sends the blocked factor's float32 panel
+    inverses to the scalar kernel."""
+    n = K.shape[-1]
+    if K.dim() != 3 or K.shape[-2] != n:
+        raise ValueError(f"plu_factor needs (B, n, n) matrices, got {K.shape}")
+    if blocked_path(n):
+        return plu_factor_blocks(K, exact)
+    return lu_factor(K)
+
+
+def plu_solve(fac, r, trans=0):
+    """Solve K x = r (trans=0) or K^T x = r (trans=1) from
+    :func:`plu_factor`'s or :func:`plu_factor_blocks`' result; r (B, n)."""
+    if trans not in (0, 1):
+        raise ValueError(f"trans must be 0 or 1, got {trans}")
+    B, n = r.shape
+    if isinstance(fac, BlockedFactor):
+        if fac.n != n or fac.binv.shape[0] != B:
+            raise ValueError(f"blocked factor (B={fac.binv.shape[0]}, "
+                             f"n={fac.n}) does not match rhs {(B, n)}")
+        return _blocked_solve(fac, r, trans)
+    if fac.shape != (B, n, n):
+        raise ValueError(f"factor {tuple(fac.shape)} does not match rhs "
+                         f"{(B, n)}")
+    return lu_solve(fac, r, trans)

@@ -43,9 +43,18 @@ class SimConfig:
       tensors (CUDA kernel on a GPU tensor, plain torch on a CPU tensor).
       ``"auto"``, ``"fused"`` and ``"pallas"`` all mean that; ``"xla"``
       (the unfused pivoted-LU loop) is not ported yet (ROADMAP A3).
-    * ``solver_factor_precision`` and ``solver_bwd_precision`` have no
-      effect: every float32 product of the port runs in full float32
-      (TF32 is never enabled).
+    * ``solver_factor_precision='highest'`` (or ``'float32'``) does what it
+      does in the JAX package: at float32 the blocked KKT factor inverts
+      its panels with the exact scalar Gauss-Jordan kernel in place of the
+      rank-16 blocked one, in the forward and in the backward.  The JAX
+      package's other use of it, the matmul precision of the forward
+      factor, has no counterpart: every float32 product of the port runs
+      in full float32 (TF32 is never enabled), and the factor is stored
+      in float32 (no bfloat16 storage).
+    * ``solver_bwd_precision`` has no effect, for the same reason: the
+      backward's products are full float32 already.
+    * ``stop_contact_grad`` stops gradients through the contact geometry
+      (normals, offsets, depths), as in the JAX package.
     * ``post_stabilization``, ``penetration_backtrack`` (ROADMAP A6),
       ``solver_refine`` and ``solver_gondzio`` (ROADMAP A3) raise until
       they are ported.  ``hull_pair_budget`` only acts on hull pairs, which the

@@ -9,7 +9,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import engine_instance, kkt_batch
+from chip_smoke import (GJ_RES_RATIO, engine_instance, inv_residual,
+                        kkt_batch)
 from lcp_physics_tpu_torch.lcp.cone import ConeF
 from lcp_physics_tpu_torch.lcp.pdipm import _dtype_consts, initial_point
 from lcp_physics_tpu_torch.ops import ipm, linalg
@@ -39,7 +40,8 @@ def test_lu_kernels_match_plain_f64(dev, B, n):
         torch.testing.assert_close(x, linalg.plu_solve_ref(lu_ref, r, trans),
                                    rtol=1e-10, atol=1e-12)
     assert linalg.LAUNCHES["lu"] == before["lu"] + 1
-    assert linalg.LAUNCHES["solve"] == before["solve"] + 2
+    assert linalg.LAUNCHES["solve"] == before["solve"] + 1
+    assert linalg.LAUNCHES["solve_t"] == before["solve_t"] + 1
 
 
 @pytest.mark.parametrize("n", [5, 88])
@@ -77,3 +79,54 @@ def test_fused_ipm_kernel_matches_plain_f64(dev, C, q):
     assert float((got[4] + got[5]).max()) < 1e-8      # every world converged
     assert got[6].dtype == torch.int32
     assert torch.equal(got[6], ref[6])
+
+
+def check_residual(K, X, Xr):
+    """||K X - I||_inf of the kernel's inverses at most GJ_RES_RATIO times
+    the plain version's, in the largest and the median matrix."""
+    res, res_r = inv_residual(torch, K, X), inv_residual(torch, K, Xr)
+    assert float(res.max()) <= GJ_RES_RATIO * float(res_r.max())
+    assert float(res.median()) <= GJ_RES_RATIO * float(res_r.median())
+
+
+@pytest.mark.parametrize("P", [16, 64, 128])
+def test_gj_inv_blocked_kernel_matches_plain(dev, P):
+    rng = np.random.default_rng(P)
+    K = torch.tensor(kkt_batch(rng, 130, P), dtype=torch.float32, device=dev)
+    before = linalg.LAUNCHES["gj_inv_blocked"]
+    X = linalg.gj_inv_blocked(K)
+    assert linalg.LAUNCHES["gj_inv_blocked"] == before + 1
+    Xr = linalg.gj_inv_blocked_ref(K)
+    err = (X - Xr).abs().amax((1, 2)) / Xr.abs().amax((1, 2))
+    assert float(err.max()) <= 1e-4
+    assert float(inv_residual(torch, K, X).max()) <= 1e-4
+    check_residual(K, X, Xr)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.float64, 1e-10)])
+@pytest.mark.parametrize("P", [40, 128])
+def test_gj_inv_kernel_matches_plain(dev, P, dtype, tol):
+    rng = np.random.default_rng(P + 1)
+    K = torch.tensor(kkt_batch(rng, 130, P), dtype=dtype, device=dev)
+    before = linalg.LAUNCHES["gj_inv"]
+    X = linalg.gj_inv(K)
+    assert linalg.LAUNCHES["gj_inv"] == before + 1
+    Xr = linalg.gj_inv_ref(K)
+    err = (X - Xr).abs().amax((1, 2)) / Xr.abs().amax((1, 2))
+    assert float(err.max()) <= tol
+    check_residual(K, X, Xr)
+
+
+def test_blocked_factor_on_the_card_matches_plain_f64(dev):
+    """Two-panel blocked LU (n = 200) through the scalar kernel at f64,
+    both solves, against the plain versions."""
+    rng = np.random.default_rng(5)
+    K = torch.tensor(kkt_batch(rng, 64, 200), device=dev)
+    r = torch.tensor(rng.standard_normal((64, 200)), device=dev)
+    fac = linalg.plu_factor(K)
+    assert isinstance(fac, linalg.BlockedFactor)
+    for trans, Kop in ((0, K), (1, K.transpose(1, 2))):
+        x = linalg.plu_solve(fac, r, trans)
+        res = torch.einsum("bij,bj->bi", Kop, x) - r
+        assert float(res.abs().max()) <= 1e-9

@@ -41,6 +41,11 @@ def test_safe_inv_guards_tiny_pivots():
 
 
 def test_larger_systems_raise():
+    """Past MAX_LANE_N the blocked factor takes over; past MAX_BLOCKED_N
+    (the JAX package's pivoted 'xla' fallback) the port raises."""
     K = torch.eye(90, dtype=torch.float64).expand(2, 90, 90)
-    with pytest.raises(NotImplementedError, match="ROADMAP B3"):
+    assert isinstance(linalg.plu_factor(K), linalg.BlockedFactor)
+    n = linalg.MAX_BLOCKED_N + 1
+    K = torch.eye(n, dtype=torch.float64).expand(2, n, n)
+    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
         linalg.plu_factor(K)

@@ -172,7 +172,8 @@ def test_cpu_tensors_run_the_plain_versions():
     _, diag, _, _ = port_run(p, v, 1)
     assert int(diag.n_contacts.sum()) > 0
     assert dict(linalg.LAUNCHES, **ipm.LAUNCHES) == before == {
-        "lu": 0, "solve": 0, "fused_ipm": 0}
+        "lu": 0, "solve": 0, "solve_t": 0, "gj_inv_blocked": 0, "gj_inv": 0,
+        "fused_ipm": 0}
 
 
 def test_unported_options_raise():
@@ -196,16 +197,25 @@ def test_unported_options_raise():
 
 
 def test_lcp_solve_backward_raises():
+    """Once raised (no backward); now the same step's backward gives
+    finite gradients equal to JAX's (fused forward, lane-LU trans=1
+    backward solve)."""
     p, v = slice_scene(2)
     static, params, state = jax_scene(p, v)
+    jstep = jax_batched_step(static, JaxSimConfig(
+        max_iter=15, solver_eps=1e-6, lcp_backend="fused"))
+    g_jax = jax.grad(lambda v_: jnp.sum(
+        jstep(params, JWorldState(state.p, v_, state.t), DT)[0].v))(state.v)
     tp = params_from_numpy(params, **F64)
     ts = state_from_numpy(state, **F64)
     ts.v.requires_grad_(True)
     step = make_batched_step(make_scene_static([1] * N, c_max=C),
                              SimConfig(max_iter=15, solver_eps=1e-6))
     s1, _ = step(tp, ts, DT)
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        s1.v.sum().backward()
+    s1.v.sum().backward()
+    assert bool(torch.isfinite(ts.v.grad).all())
+    np.testing.assert_allclose(ts.v.grad.numpy(), np.asarray(g_jax),
+                               rtol=1e-8, atol=1e-10)
 
 
 def test_golden_record_matches_jax():

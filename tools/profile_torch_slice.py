@@ -1,16 +1,21 @@
-"""Where the time of the PyTorch port's slice step goes, on one GPU.
+"""Where the time of the PyTorch port's slices goes, on one GPU.
 
-Steps chip_smoke.py's slice scene (the 8-circle benchmark scene, B = 4096
-worlds, float32) through ``make_batched_step``, 10 steps after 3 warm-up
-steps, and reports:
+By default steps chip_smoke.py's forward slice scene (the 8-circle
+benchmark scene, B = 4096 worlds, float32) through ``make_batched_step``,
+10 steps after 3 warm-up steps.  With ``--train`` it runs chip_smoke.py's
+training slice instead: value and gradients of mean(p^2) through the
+8-step rollout of the dense 64-circle grid (B = 256, float32), once after
+one warm-up.  It reports:
 
-- ms/step on the host clock around synchronised steps (profiler off);
+- ms per rollout step on the host clock around synchronised work
+  (profiler off);
 - under ``torch.profiler``: device kernel time and launches per step, the
-  device's busy share of the profiler-off step, and the top operators by
-  device time; with ``--trace PATH`` also a Chrome trace.
+  device's busy share of the profiler-off time, and the top operators by
+  device time and by host time; with ``--trace PATH`` also a Chrome
+  trace.
 
-Run from the repository root: ``python tools/profile_torch_slice.py``.
-Exits non-zero without a CUDA device.
+Run from the repository root: ``python tools/profile_torch_slice.py
+[--train]``.  Exits non-zero without a CUDA device.
 """
 import argparse
 import os
@@ -23,6 +28,8 @@ STEPS = 10
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--trace", default=None, help="Chrome trace output path")
+    ap.add_argument("--train", action="store_true",
+                    help="profile the dense training step (fwd+bwd)")
     args = ap.parse_args()
 
     import torch
@@ -35,22 +42,38 @@ def main():
     import chip_smoke
 
     dev = torch.device("cuda", 0)
-    step, params, s = chip_smoke.slice_scene(
-        torch, dev, torch.float32, *chip_smoke.slice_start(chip_smoke.B))
-    for _ in range(3):                                  # warm-up
-        s, _ = step(params, s, chip_smoke.DT)
+    if args.train:
+        cs = chip_smoke
+        step, params, s = cs.train_scene(
+            torch, dev, torch.float32,
+            *cs.grid_start(cs.TRAIN_B, cs.TRAIN_SIDE), cs.TRAIN_C)
+        cs.train_step(torch, step, params, s, 1)        # warm-up
+        unit, per, what = 1, cs.TRAIN_STEPS, (
+            f"B={cs.TRAIN_B} f32 fwd+bwd over {cs.TRAIN_STEPS} steps")
+
+        def work(state):
+            cs.train_step(torch, step, params, state, cs.TRAIN_STEPS)
+            return state
+    else:
+        step, params, s = chip_smoke.slice_scene(
+            torch, dev, torch.float32, *chip_smoke.slice_start(chip_smoke.B))
+        for _ in range(3):                              # warm-up
+            s, _ = step(params, s, chip_smoke.DT)
+        unit, per, what = STEPS, 1, f"B={chip_smoke.B} f32"
+
+        def work(state):
+            return step(params, state, chip_smoke.DT)[0]
 
     def run(state):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(STEPS):
-            state, _ = step(params, state, chip_smoke.DT)
+        for _ in range(unit):
+            state = work(state)
         torch.cuda.synchronize()
-        return state, (time.perf_counter() - t0) / STEPS
+        return state, (time.perf_counter() - t0) / unit / per
 
     s, sec = run(s)
-    print(f"B={chip_smoke.B} f32: {1e3 * sec:.3f} ms/step (host clock, "
-          "profiler off)")
+    print(f"{what}: {1e3 * sec:.3f} ms/step (host clock, profiler off)")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         s, sec_p = run(s)
@@ -59,15 +82,19 @@ def main():
     # the kernels it launched, so summing every row counts them twice
     kernels = [e for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / STEPS
-    launches = sum(e.count for e in kernels)
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 \
+        / (unit * per)
+    launches = sum(e.count for e in kernels) / (unit * per)
     # the profiler slows the host, not the device: busy share is device
     # time over the profiler-off step time
     print(f"profiled: {1e3 * sec_p:.3f} ms/step; device kernel time "
-          f"{dev_ms:.3f} ms/step, {launches / STEPS:.0f} device "
+          f"{dev_ms:.3f} ms/step, {launches:.0f} device "
           f"launches/step; device busy {dev_ms / (1e3 * sec):.1%} of the "
           "profiler-off step")
     print(events.table(sort_by="self_device_time_total", row_limit=15,
+                       max_name_column_width=50))
+    # the host's share: operators by their own CPU time
+    print(events.table(sort_by="self_cpu_time_total", row_limit=12,
                        max_name_column_width=50))
     if args.trace:
         prof.export_chrome_trace(args.trace)
