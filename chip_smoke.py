@@ -8,10 +8,10 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    the CUDA kernels from ``lcp_physics_tpu_torch/csrc`` (one nvcc per
    source, all at once) and times the build.
 2. Kernels: each kernel (LU factor, substitution, fused IPM, blocked and
-   scalar Gauss-Jordan panel inverse) against its plain torch version on
-   the card, float32 and float64, with CUDA-event timings (median of 20)
-   of kernel and plain version; the panel inverses also by ||K X - I||
-   against the plain version's own.
+   scalar Gauss-Jordan panel inverse, fused IPM iteration) against its
+   plain torch version on the card, float32 and float64, with CUDA-event
+   timings (median of 20) of kernel, plain version and library call; the
+   panel inverses also by ||K X - I|| against the plain version's own.
 3. The forward slice: the batched 8-circle contact rollout of the LCP
    benchmark scene (B = 4096 worlds, c_max = 8, dt = 0.01,
    SimConfig(max_iter=15, solver_eps=1e-6), float32, 20 steps) through
@@ -29,13 +29,30 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    bench.py::bench_fwd_bwd's touching 8-circle line (B = 64, 20 steps,
    the trans=1 substitution kernel) — each through the kernels with the
    counters reset just before it, and against the plain versions.
-5. A JSON line per kernel, then the contract line
+5. Path (b), K6: the dense scene's forward (B = 256 f32, 8 steps) with
+   ``lcp.pdipm.FUSE_ITER`` set — per IPM iteration the explicit inverse
+   (K4 and ``torch.matmul``) and one launch of the fused per-iteration
+   kernel — held to its plain path, timed in turns with the unfused loop,
+   with host reads and device events per step.  Before it, in the kernel
+   phase, K6 against its plain iteration on the same scene's first-step
+   LCP (one iteration at B = 256 f32 and B = 32 f64, runs capped at 3
+   iterations, a full f32 run against plain's one-ulp spread).
+6. Path (a), the accuracy profile: the dense training step with
+   SimConfig(solver_refine=1) (the explicit-inverse factor with two
+   refinement steps per solve, forward and backward), its capped one-step
+   gradient against plain, the B = 2 f64 JAX record
+   ``tests/data/torch_refine_golden.json``, and the first step's median
+   final merit at refine 0 and 1.
+7. The card's name and power limit, a JSON line listing every kernel
+   (``ms``, ``plain_ms``, ``library_ms`` — one PyTorch call computing the
+   same function where there is one, timed here only —, ``bound_ms`` and
+   ``bound_by`` from the call's bytes and operations at the card's
+   published peaks, launches on its path), then the contract line
    ``{"ok": true, "device": {...}}`` last.
 
 Any failed check raises; the script exits non-zero without the last line.
 It exits non-zero at once when no CUDA device is present.
 """
-import concurrent.futures
 import contextlib
 import json
 import os
@@ -49,17 +66,35 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 B = 4096
 N, C, DT, STEPS = 8, 8, 0.01, 20
 CAP_ITERS = 3   # the fused kernel's per-world check: iterations, no stopping
-KERNEL_SOURCES = ("lu", "fused_ipm", "gj_inv")
 TRAIN_B, TRAIN_SIDE, TRAIN_C, TRAIN_STEPS = 256, 8, 128, 8
 TRAIN_B64 = 32
 GJ_RES_RATIO = 4   # a panel kernel's ||K X - I|| against its plain version's
 LINE_B, LINE_STEPS = 64, 20
+ITER_B64 = 32   # K6 at float64: worlds of the dense scene
+# The H100 SXM's published peaks (NVIDIA's data sheet; full 700 W power
+# limit): HBM3 bytes/s, and FLOP/s outside the tensor cores by item size.
+PEAK_BYTES = 3.35e12
+PEAK_FLOPS = {4: 67e12, 8: 34e12}
 
 
 def check(ok, what):
     if not ok:
         raise RuntimeError(f"check failed: {what}")
     print(f"  ok: {what}", flush=True)
+
+
+def bound(nbytes, flops, itemsize):
+    """The least time the card could take for a call that must move
+    ``nbytes`` (each input read once, each output written once) and do
+    ``flops`` operations of ``itemsize``-byte floats: bound_ms and what
+    bounds it."""
+    tb, tf = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[itemsize]
+    return dict(bound_ms=1e3 * max(tb, tf),
+                bound_by="bytes" if tb >= tf else "operations")
+
+
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
 
 
 def cuda_ms(torch, fn, reps=20):
@@ -142,9 +177,9 @@ def phase_device(torch):
           "float32 matmuls run in full float32 (TF32 off)")
     from lcp_physics_tpu_torch.ops import _build
     t0 = time.time()
-    with concurrent.futures.ThreadPoolExecutor(len(KERNEL_SOURCES)) as ex:
-        list(ex.map(_build.load, KERNEL_SOURCES))
-    print(f"kernels built and loaded in {time.time() - t0:.1f} s", flush=True)
+    names = _build.load_all()
+    print(f"kernels built and loaded in {time.time() - t0:.1f} s: "
+          f"{', '.join(names)}", flush=True)
     return smi
 
 
@@ -183,15 +218,22 @@ def phase_lu(torch, dev):
             if n == 2 * C and dt == torch.float32:   # the slice's K2 = 16
                 x = linalg.plu_solve(lu, r)
                 x_ref = linalg.plu_solve_ref(lu_ref, r)
+                lu_l, piv = torch.linalg.lu_factor(K, pivot=False)
                 out["lu"] = dict(
                     max_abs_err=float((lu - lu_ref).abs().max()),
                     ms=cuda_ms(torch, lambda: linalg.plu_factor(K)),
-                    plain_ms=cuda_ms(torch, lambda: linalg.plu_factor_ref(K)))
+                    plain_ms=cuda_ms(torch, lambda: linalg.plu_factor_ref(K)),
+                    library_ms=cuda_ms(torch, lambda: torch.linalg.lu_factor(
+                        K, pivot=False)),
+                    **bound(2 * nbytes(K), B * 2 * n ** 3 / 3, 4))
                 out["solve"] = dict(
                     max_abs_err=float((x - x_ref).abs().max()),
                     ms=cuda_ms(torch, lambda: linalg.plu_solve(lu, r)),
                     plain_ms=cuda_ms(torch,
-                                     lambda: linalg.plu_solve_ref(lu, r)))
+                                     lambda: linalg.plu_solve_ref(lu, r)),
+                    library_ms=cuda_ms(torch, lambda: torch.linalg.lu_solve(
+                        lu_l, piv, r[..., None])),
+                    **bound(nbytes(lu, r, x), B * 2 * n * n, 4))
             if n == 88:
                 print(f"  n=88 {str(dt)[6:]}: factor "
                       f"{cuda_ms(torch, lambda: linalg.plu_factor(K)):.3f} ms"
@@ -258,7 +300,10 @@ def phase_gj(torch, dev):
         X, Xr = hold_gj(torch, name, f, fr, K)
         out[name] = dict(max_abs_err=float((X - Xr).abs().max()),
                          ms=cuda_ms(torch, lambda: f(K)),
-                         plain_ms=cuda_ms(torch, lambda: fr(K)))
+                         plain_ms=cuda_ms(torch, lambda: fr(K)),
+                         library_ms=cuda_ms(torch, lambda: torch.linalg.inv(K)),
+                         **bound(2 * nbytes(K), Bp * 2 * P ** 3,
+                                 K.element_size()))
     return out
 
 
@@ -352,18 +397,33 @@ def phase_fused(torch, dev):
                         max_abs_err=float((got[0] - ref[0]).abs().max()),
                         ms=cuda_ms(torch, lambda: ipm.fused_ipm(*args, **kw)),
                         plain_ms=cuda_ms(
-                            torch, lambda: ipm.fused_ipm_ref(*args, **kw)))
+                            torch, lambda: ipm.fused_ipm_ref(*args, **kw)),
+                        library_ms=None,
+                        **fused_bound(ops, args, got, n, Cc, q))
     return out
 
 
+def fused_bound(ops, args, got, n, Cc, q):
+    """K3's bound for this run: its inputs and outputs once, and per world
+    the iterations it ran (iters; a world stops before the factor of its
+    last one): a K x K Gauss-Jordan inverse (2K^3), two solves of three
+    K x K matvecs (12K^2) and two Ghat products (4Kn) each, and two more
+    Ghat products per merit evaluation (iters + 3 of them)."""
+    K = 2 * Cc + q
+    it = got[6].double()
+    flops = float((it * (2 * K ** 3 + 12 * K * K + 4 * K * n)
+                   + (it + 3) * 4 * K * n).sum())
+    return bound(nbytes(*ops, *args[1:], *got), flops, got[0].element_size())
+
+
 def launch_counts():
-    from lcp_physics_tpu_torch.ops import ipm, linalg
-    return dict(linalg.LAUNCHES, **ipm.LAUNCHES)
+    from lcp_physics_tpu_torch.ops import ipm, ipm_iter, linalg
+    return dict(linalg.LAUNCHES, **ipm.LAUNCHES, **ipm_iter.LAUNCHES)
 
 
 def reset_counts():
-    from lcp_physics_tpu_torch.ops import ipm, linalg
-    for counts in (linalg.LAUNCHES, ipm.LAUNCHES):
+    from lcp_physics_tpu_torch.ops import ipm, ipm_iter, linalg
+    for counts in (linalg.LAUNCHES, ipm.LAUNCHES, ipm_iter.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -373,12 +433,13 @@ def plain_kernels(what):
     """Route the solver through the plain torch versions (the comparison
     path): the solver looks its kernels up on these modules.  Checks that
     no kernel launched inside, so the comparison path was plain."""
-    from lcp_physics_tpu_torch.ops import ipm, linalg
+    from lcp_physics_tpu_torch.ops import ipm, ipm_iter, linalg
     swaps = [(linalg, "lu_factor", linalg.plu_factor_ref),
              (linalg, "lu_solve", linalg.plu_solve_ref),
              (linalg, "gj_inv_blocked", linalg.gj_inv_blocked_ref),
              (linalg, "gj_inv", linalg.gj_inv_ref),
-             (ipm, "fused_ipm", ipm.fused_ipm_ref)]
+             (ipm, "fused_ipm", ipm.fused_ipm_ref),
+             (ipm_iter, "fused_iter_ipm", ipm_iter.fused_iter_ipm_ref)]
     saved = [getattr(mod, name) for mod, name, _ in swaps]
     for mod, name, ref in swaps:
         setattr(mod, name, ref)
@@ -660,22 +721,308 @@ def phase_train(torch, dev, smi):
           f"({1e3 * sec:.0f} ms vs plain {1e3 * sec_r:.0f} ms per fwd+bwd, "
           f"B={TRAIN_B64})")
 
-    with open(os.path.join(ROOT, "tests", "data",
-                           "torch_train_golden.json")) as f:
+    hold_record(torch, dev, "torch_train_golden.json")
+    return launches, launches64
+
+
+def hold_record(torch, dev, name):
+    """The B = 2 f64 grid's loss (1e-10) and gradients (1e-8) through the
+    kernels against the JAX record tests/data/<name>, under the record's
+    SimConfig fields."""
+    with open(os.path.join(ROOT, "tests", "data", name)) as f:
         rec = json.load(f)
-    step, params, state = train_scene(torch, dev, f64, np.asarray(rec["p0"]),
-                                      np.asarray(rec["v0"]), rec["c_max"])
+    cfg = rec.get("config", {})
+    step, params, state = train_scene(
+        torch, dev, torch.float64, np.asarray(rec["p0"]),
+        np.asarray(rec["v0"]), rec["c_max"], **cfg)
     loss, grads = train_step(torch, step, params, state, rec["steps"])
+    what = f"B=2 f64 grid {cfg or ''} vs JAX record"
     el = abs(float(loss) / rec["loss"] - 1)
-    check(el <= 1e-10, f"B=2 f64 grid vs JAX record: loss {el:.2e} "
-                       "(<= 1e-10)")
+    check(el <= 1e-10, f"{what}: loss {el:.2e} (<= 1e-10)")
     for k, g in zip(("mass", "restitution", "fric_coeff", "v0"), grads):
-        want = torch.tensor(rec["grad_" + k], dtype=f64)
+        want = torch.tensor(rec["grad_" + k], dtype=torch.float64)
         e = float((g.cpu() - want).abs().max()
                   / max(1.0, float(want.abs().max())))
-        check(e <= 1e-8, f"B=2 f64 grid vs JAX record: d loss/d {k} {e:.2e}"
-                         " (<= 1e-8)")
-    return launches, launches64
+        check(e <= 1e-8, f"{what}: d loss/d {k} {e:.2e} (<= 1e-8)")
+
+
+def first_step_lcp(torch, dev, dt, B, seed=1):
+    """The LCP of the dense scene's first step (the touching 8 x 8 grid of
+    ``grid_start(B, 8, seed)``, c_max = 128): the keyword arguments
+    make_batched_step gives lcp_solve."""
+    import lcp_physics_tpu_torch.core.step as step_mod
+    step, params, state = train_scene(torch, dev, dt,
+                                      *grid_start(B, TRAIN_SIDE, seed),
+                                      TRAIN_C)
+    seen = {}
+    orig = step_mod.lcp_solve
+
+    def capture(**kw):
+        seen.update(kw)
+        return orig(**kw)
+    step_mod.lcp_solve = capture
+    try:
+        with torch.no_grad():
+            step(params, state, DT)
+    finally:
+        step_mod.lcp_solve = orig
+    return seen
+
+
+def iter_operands(torch, lcp):
+    """K6's operands for ``lcp`` (first_step_lcp's): Ghat and Q^-1, the
+    initial iterate X0, the rotated factor (its ``iter_inv_raw`` builds the
+    inverse) and the dtype's constants."""
+    from lcp_physics_tpu_torch.lcp import pdipm
+    from lcp_physics_tpu_torch.ops import ipm
+    Q, p, G, h, A, b, F = (lcp[k] for k in "Q p G h A b F".split())
+    rmask = lcp["row_mask"].to(p.dtype)
+    consts = pdipm._dtype_consts(p.dtype)
+    ops = ipm.rot_operands(Q, G, A, F.C)
+    fac = pdipm._rot_factor_factory(ops, F, consts["reg"])
+    X0 = torch.cat(pdipm._start(fac, p, h, b, rmask, consts), -1)
+    vecs = (ops[1], ops[2], p, h, b, F.mu, F.valid, rmask)
+    return vecs, X0, fac, consts
+
+
+def iter_bound(inv, vecs, X, C):
+    """K6's bound for one launch on which no world is done: the K2 x K2
+    inverse block, Ghat, the vectors, X, bestX and the state read once, X,
+    bestX and the state written once; 2 inverse matvecs (4 K2^2) and 4
+    Ghat products (8 K2 n) per world."""
+    Ghat = vecs[0]
+    B, K2, n = Ghat.shape
+    it = X.element_size()
+    moved = (B * K2 * K2 * it + nbytes(*vecs) + 4 * nbytes(X)
+             + 2 * B * 4 * it)
+    return bound(moved, B * (4 * K2 * K2 + 8 * K2 * n), it)
+
+
+def phase_ipm_iter(torch, dev):
+    """K6 against its plain iteration on the dense scene's first-step LCP:
+    one iteration from the same inputs (B = 256 f32, B = 32 f64), runs
+    capped at CAP_ITERS iterations, and a full f32 run against plain's own
+    one-ulp spread; timings of K6, the plain iteration and the inverse
+    build."""
+    from lcp_physics_tpu_torch.ops import ipm_iter
+    out = {}
+    for dt, Bn, seed in ((torch.float32, TRAIN_B, 1),
+                         (torch.float64, ITER_B64, 2)):
+        f64 = dt == torch.float64
+        tag = f"B={Bn} {str(dt)[6:]}"
+        lcp = first_step_lcp(torch, dev, dt, Bn, seed)
+        vecs, X0, fac, consts = iter_operands(torch, lcp)
+        C = lcp["F"].C
+        n, m = vecs[2].shape[1], 4 * C
+        d_inv = torch.clamp(X0[:, n:n + m] / torch.clamp(
+            X0[:, n + m:n + 2 * m], min=consts["tiny"]), consts["dinv_min"],
+            consts["dinv_max"])
+        inv = fac.iter_inv_raw(d_inv)
+        state = ipm_iter.initial_state(Bn, 12, dt, dev)
+        kw = dict(C=C, consts=consts, tol=1e-5, not_improved_lim=1,
+                  stall_rtol=0.0)
+        a = (inv, *vecs, X0, X0, state, 0)
+        got = ipm_iter.iteration(*a, **kw)
+        ref = ipm_iter._iter_ref(*a, **kw)
+        torch.cuda.synchronize()
+        # f32: the direction is an inverse matvec over 256 terms summed in
+        # another order than plain's; on this scene a world's X moves by
+        # 1.3e-6 at most (random instances with more cancellation reach
+        # 2e-4, hence tests/test_torch_cuda.py's 1e-3); f64: rounding only.
+        lims = (1e-10, 1e-10, 1e-10) if f64 else (1e-4, 0.0, 1e-5)
+        errs = [float(world_rel(g, r).max()) for g, r in zip(got, ref)]
+        check(all(e <= lim for e, lim in zip(errs, lims)),
+              f"K6 {tag}, one iteration from the same inputs, per world: X "
+              f"{errs[0]:.2e} (<= {lims[0]:g}), bestX {errs[1]:.2e} (<= "
+              f"{lims[1]:g}), state {errs[2]:.2e} (<= {lims[2]:g})")
+        run = dict(C=C, consts=consts, inv_raw=fac.iter_inv_raw)
+        cap = dict(run, max_iter=CAP_ITERS, tol=0.0, not_improved_lim=0)
+        g3 = ipm_iter.fused_iter_ipm(*vecs, X0, **cap)
+        r3 = ipm_iter.fused_iter_ipm_ref(*vecs, X0, **cap)
+        ez = world_rel(g3[0][:, :n], r3[0][:, :n])
+        el = world_rel(g3[0][:, n + m:n + 2 * m], r3[0][:, n + m:n + 2 * m])
+        lim = 1e-8 if f64 else 1e-3
+        check(float(torch.maximum(ez, el).max()) <= lim,
+              f"K6 {tag}, {CAP_ITERS} iterations on every world: z "
+              f"{float(ez.max()):.2e}, lam {float(el.max()):.2e} vs plain "
+              f"(<= {lim:g})")
+        if f64:
+            continue
+        full = dict(run, max_iter=12, tol=1e-5, not_improved_lim=1)
+        g = ipm_iter.fused_iter_ipm(*vecs, X0, **full)
+        r = ipm_iter.fused_iter_ipm_ref(*vecs, X0, **full)
+        p_ulp = vecs[2] * (1 + 2.0 ** -23 * torch.randn(
+            vecs[2].shape, generator=torch.Generator(dev).manual_seed(1),
+            device=dev, dtype=dt))
+        u = ipm_iter.fused_iter_ipm_ref(*vecs[:2], p_ulp, *vecs[3:], X0,
+                                        **full)
+        same, same_u = (g[3] == r[3]), (u[3] == r[3])
+        e, e_u = (world_rel(x[1][:, :n], r[1][:, :n]) for x in (g, u))
+        worse = float((g[2] - r[2]).max())
+        worse_u = float((u[2] - r[2]).max())
+        check(float(same.double().mean()) >= 0.9 * float(same_u.double().mean())
+              and float(e.median()) <= max(1e-6, 4 * float(e_u.median()))
+              and share(e, 1e-2) >= share(e_u, 1e-2) - 0.05
+              and worse <= max(1e-3, 2 * worse_u),
+              f"K6 {tag}, full runs: iterations equal on "
+              f"{float(same.double().mean()):.2%} of worlds (plain at p+1ulp:"
+              f" {float(same_u.double().mean()):.2%}); best z median "
+              f"{float(e.median()):.2e}, within 1e-2 on {share(e, 1e-2):.2%} "
+              f"(plain at p+1ulp: {float(e_u.median()):.2e}, "
+              f"{share(e_u, 1e-2):.2%}); best merit at most {worse:.2e} above"
+              f" plain's (p+1ulp: {worse_u:.2e})")
+        out["ipm_iter"] = dict(
+            max_abs_err=float((got[0] - ref[0]).abs().max()),
+            ms=cuda_ms(torch, lambda: ipm_iter.iteration(*a, **kw)),
+            plain_ms=cuda_ms(torch, lambda: ipm_iter._iter_ref(*a, **kw)),
+            library_ms=None, **iter_bound(inv, vecs, X0, C))
+        print(f"  K6 {tag}: inverse build (iter_inv_raw) "
+              f"{cuda_ms(torch, lambda: fac.iter_inv_raw(d_inv)):.3f} ms per"
+              " iteration", flush=True)
+    return out
+
+
+def device_events(torch, fn, steps):
+    """Device events (kernels and copies) and device ms per step of fn()
+    under torch.profiler; (None, None) if the profiler sees no device."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not ev:
+        return None, None
+    return (sum(e.count for e in ev) / steps,
+            sum(e.self_device_time_total for e in ev) / 1e3 / steps)
+
+
+def per_step(torch, what, fn, steps, smi):
+    """fn() once more for its host reads and once under the profiler; prints
+    the per-step figures and returns the host reads per step."""
+    from lcp_physics_tpu_torch.lcp import pdipm
+    reads = pdipm.HOST_READS["ipm_loop"]
+    fn()
+    reads = (pdipm.HOST_READS["ipm_loop"] - reads) / steps
+    events, dev_ms = device_events(torch, fn, steps)
+    shown = ("not measured" if events is None else
+             f"{events:.0f} device events, {dev_ms:.3f} ms of device time")
+    print(f"  {what}: {reads:.1f} host reads per step; {shown} per step "
+          f"({smi})", flush=True)
+    return reads
+
+
+def phase_fuse_iter(torch, dev, smi):
+    """Path (b): the dense scene's forward (B = 256 f32, TRAIN_STEPS
+    steps) with pdipm.FUSE_ITER set: K6 per IPM iteration after the
+    inverse build.  Counts reset just before, K6 and K4 > 0 after; one-step
+    v against the plain path, held to plain's one-ulp spread; ms/step in
+    turns with the unfused loop.  Returns the launch counts."""
+    from lcp_physics_tpu_torch.lcp import pdipm
+    f32 = torch.float32
+    p0, v0 = grid_start(TRAIN_B, TRAIN_SIDE)
+
+    def fwd(fuse, p=p0, n=TRAIN_STEPS):
+        step, params, state = train_scene(torch, dev, f32, p, v0, TRAIN_C)
+        pdipm.FUSE_ITER = fuse
+        try:
+            with torch.no_grad():
+                return timed_rollout(torch, step, params, state, n)
+        finally:
+            pdipm.FUSE_ITER = False
+    fwd(True, n=1)
+    fwd(False, n=1)                                  # warm-ups
+    reset_counts()
+    _, traj, _ = fwd(True)
+    launches = launch_counts()
+    print(f"path (b) launches over {TRAIN_STEPS} steps: {launches}",
+          flush=True)
+    check(launches["ipm_iter"] > 0 and launches["gj_inv_blocked"] > 0,
+          "the FUSE_ITER forward launched K6 (ipm_iter) and K4")
+    check(bool(torch.isfinite(traj.p).all() and torch.isfinite(traj.v).all()),
+          "every state of the FUSE_ITER rollout is finite")
+    _, t1, _ = fwd(True, n=1)
+    with plain_kernels("the FUSE_ITER comparison steps"):
+        _, t1_r, _ = fwd(True, n=1)
+        _, t1_u, _ = fwd(True, p=ulp(p0), n=1)
+    e, e_u = (world_rel(t.v[0], t1_r.v[0]) for t in (t1, t1_u))
+    check(float(e.median()) <= max(1e-6, 4 * float(e_u.median()))
+          and share(e, 1e-3) >= share(e_u, 1e-3) - 0.05,
+          f"FUSE_ITER one-step v kernel vs plain, f32: median world "
+          f"{float(e.median()):.2e}, within 1e-3 on {share(e, 1e-3):.2%} "
+          f"(plain at p0+1ulp: {float(e_u.median()):.2e}, "
+          f"{share(e_u, 1e-3):.2%})")
+    _, t1_unf, _ = fwd(False, n=1)
+    e_unf = world_rel(t1_unf.v[0], t1.v[0])
+    print(f"  FUSE_ITER vs the unfused loop, one-step v: median world "
+          f"{float(e_unf.median()):.2e}, max {float(e_unf.max()):.2e}",
+          flush=True)
+    times = {False: [], True: []}
+    for fuse in (False, True, True, False):
+        times[fuse].append(fwd(fuse)[2])
+    for fuse, what in ((False, "unfused loop"), (True, "FUSE_ITER (K6)")):
+        ms = ", ".join(f"{1e3 * t / TRAIN_STEPS:.2f}" for t in times[fuse])
+        print(f"dense forward, {what}: {ms} ms/step (B={TRAIN_B}, f32, "
+              f"{TRAIN_STEPS} steps, in turns unfused, K6, K6, unfused; "
+              f"{smi})", flush=True)
+        per_step(torch, f"dense forward, {what}",
+                 lambda: fwd(fuse), TRAIN_STEPS, smi)
+    return launches
+
+
+def phase_refine(torch, dev, smi):
+    """Path (a): the dense training step at SimConfig(solver_refine=1),
+    B = 256 f32 (the explicit inverse through K4, two refinement steps per
+    solve, forward and backward); the capped one-step v0-gradient against
+    plain per world; the B = 2 f64 record at refine 1; the median final
+    merit of the first step's worlds at refine 0 and 1.  Returns the
+    launch counts."""
+    from lcp_physics_tpu_torch.lcp import lcp_solve_full
+    f32 = torch.float32
+    p0, v0 = grid_start(TRAIN_B, TRAIN_SIDE)
+    step, params, state = train_scene(torch, dev, f32, p0, v0, TRAIN_C,
+                                      solver_refine=1)
+    train_step(torch, step, params, state, 1)      # warm-up, not counted
+    reset_counts()
+    loss, grads, sec = timed_train(torch, step, params, state, TRAIN_STEPS)
+    launches = launch_counts()
+    print(f"path (a) launches over {TRAIN_STEPS} steps, fwd+bwd: {launches}",
+          flush=True)
+    check(launches["gj_inv_blocked"] > 0,
+          "the refine=1 training step launched K4")
+    check(all_finite(torch, loss, grads),
+          f"refine=1 f32 loss {float(loss):.6e} and its gradients are finite")
+    print(f"dense training step at solver_refine=1: {1e3 * sec:.1f} ms per "
+          f"fwd+bwd, {TRAIN_B * TRAIN_STEPS / sec:,.0f} grad-world-steps/s "
+          f"(B={TRAIN_B}, f32, {TRAIN_STEPS} steps; {smi})", flush=True)
+    per_step(torch, "dense training step at solver_refine=1",
+             lambda: train_step(torch, step, params, state, TRAIN_STEPS),
+             TRAIN_STEPS, smi)
+    cap = dict(max_iter=CAP_ITERS, solver_eps=0.0, solver_stall_lim=0,
+               solver_refine=1)
+    step_c, params_c, state_c = train_scene(torch, dev, f32, p0, v0, TRAIN_C,
+                                            **cap)
+    _, grads_c = train_step(torch, step_c, params_c, state_c, 1)
+    with plain_kernels("the refine=1 comparison step"):
+        _, grads_cr = train_step(torch, step_c, params_c, state_c, 1)
+    e = world_rel(grads_c[3], grads_cr[3])
+    check(float(e.max()) <= 1e-5,
+          f"refine=1 f32 v0-gradient kernel vs plain, one step capped at "
+          f"{CAP_ITERS} IPM iterations: every world within "
+          f"{float(e.max()):.2e} (<= 1e-5), median {float(e.median()):.2e}")
+    hold_record(torch, dev, "torch_refine_golden.json")
+    lcp = first_step_lcp(torch, dev, f32, TRAIN_B)
+    for refine in (0, 1):
+        with torch.no_grad():
+            sol = lcp_solve_full(**dict(lcp, refine=refine))
+        merit = sol.mu + sol.resid
+        print(f"  first dense step's LCP at refine={refine}: median final "
+              f"merit (mu + resid) {float(merit.median()):.3e}, max "
+              f"{float(merit.max()):.3e} (B={TRAIN_B}, f32; {smi})",
+              flush=True)
+    return launches
 
 
 def phase_line(torch, dev, smi):
@@ -731,15 +1078,24 @@ def main():
     stats = phase_lu(torch, dev)
     stats.update(phase_fused(torch, dev))
     stats.update(phase_gj(torch, dev))
+    stats.update(phase_ipm_iter(torch, dev))
     for k, s in stats.items():
-        print(f"  {k}: {s['ms']:.3f} ms (plain {s['plain_ms']:.3f} ms) at "
-              "its path's shape", flush=True)
+        lib = ("none" if s["library_ms"] is None
+               else f"{s['library_ms']:.3f} ms")
+        print(f"  {k}: {s['ms']:.3f} ms (plain {s['plain_ms']:.3f} ms, "
+              f"library call {lib}, bound {s['bound_ms']:.4f} ms by "
+              f"{s['bound_by']}) at its path's shape", flush=True)
     print("== forward slice: batched 8-circle contact rollout", flush=True)
     launches = phase_slice(torch, dev, smi)
     print("== training slice: dense 64-circle fwd+bwd", flush=True)
     train32, train64 = phase_train(torch, dev, smi)
     print("== backward of the touching 8-circle line", flush=True)
     phase_line(torch, dev, smi)
+    print("== path (b): the dense forward through K6 (FUSE_ITER)", flush=True)
+    fuse_iter = phase_fuse_iter(torch, dev, smi)
+    print("== path (a): the dense training step at solver_refine=1",
+          flush=True)
+    phase_refine(torch, dev, smi)
 
     src = "lcp_physics_tpu_torch/csrc/"
     rows = [("lu", src + "lu.cu", "lcp_physics_tpu/ops/linalg.py:113",
@@ -751,7 +1107,9 @@ def main():
             ("gj_inv_blocked", src + "gj_inv.cu",
              "lcp_physics_tpu/ops/linalg.py:238", train32),
             ("gj_inv", src + "gj_inv.cu",
-             "lcp_physics_tpu/ops/linalg.py:150", train64)]
+             "lcp_physics_tpu/ops/linalg.py:150", train64),
+            ("ipm_iter", src + "ipm_iter.cu",
+             "lcp_physics_tpu/ops/ipm_iter.py:102", fuse_iter)]
     kernels = [dict(name=name, route="cuda", source=source, replaces=rep,
                     launches=counts[name], **stats[name])
                for name, source, rep, counts in rows]

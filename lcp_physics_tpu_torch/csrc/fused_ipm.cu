@@ -87,52 +87,6 @@ __host__ __device__ inline size_t carve(Smem<T>* S, T* base, int n, int m,
   return off;
 }
 
-struct SumOp {
-  template <typename T> __device__ T operator()(T a, T b) const { return a + b; }
-};
-struct MaxOp {  // NaN-propagating, like jnp.max
-  template <typename T> __device__ T operator()(T a, T b) const {
-    return (a > b || isnan(a)) ? a : b;
-  }
-};
-struct MinOp {
-  template <typename T> __device__ T operator()(T a, T b) const { return a < b ? a : b; }
-};
-
-// Block-wide reduction; every thread gets the result.  Callers order their
-// shared-memory writes before it with __syncthreads.
-template <typename T, typename Op>
-__device__ T block_reduce(T v, T* red, Op op) {
-  for (int o = 16; o > 0; o >>= 1) v = op(v, __shfl_xor_sync(0xffffffffu, v, o));
-  const int nw = blockDim.x >> 5;
-  if (nw == 1) return v;
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  T r = red[0];
-  for (int w = 1; w < nw; ++w) r = op(r, red[w]);
-  return r;
-}
-
-template <typename T>
-__device__ inline void copy_vec(T* dst, const T* src, int len) {
-  for (int i = threadIdx.x; i < len; i += blockDim.x) dst[i] = src[i];
-}
-
-// max/min that propagate NaN like jnp.maximum/jnp.minimum (fmax does not)
-template <typename T>
-__device__ inline T nmax(T a, T b) {
-  return (a > b || isnan(a)) ? a : b;
-}
-template <typename T>
-__device__ inline T nmin(T a, T b) {
-  return (a < b || isnan(a)) ? a : b;
-}
-template <typename T>
-__device__ inline T clip(T v, T lo, T hi) {
-  return v < lo ? lo : (v > hi ? hi : v);
-}
-
 template <typename T>
 struct Ipm {
   const IpmArgs<T>& a;

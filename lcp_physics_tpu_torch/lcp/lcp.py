@@ -72,11 +72,13 @@ def _normalize(Q, p, G, h, A, b, F, q_is_diag=None):
     return diag_q, (Q, p, G, h, A, b, F)
 
 
-def _lcp_bwd_impl(z, s, lam, nu, Q, G, A, F, g,
-                  factor_precision=None):
+def _lcp_bwd_impl(z, s, lam, nu, Q, G, A, F, g, factor_precision=None,
+                  refine=0):
     """Cotangents (dQ, dp, dG, dh, dA, db, dmu) of ``lcp_solve`` for the
     output cotangent ``g``, at the solution (z, s, lam, nu) of the rotated
-    engine layout (diagonal Q, ``ConeF``)."""
+    engine layout (diagonal Q, ``ConeF``).  The transposed solve uses the
+    forward's factor mode: ``factor_precision`` and ``refine`` as given to
+    the forward."""
     single = G.dim() == 2
     if single:
         z, s, lam, nu, Q, G, A, g = (x[None] for x in (z, s, lam, nu, Q, G,
@@ -90,7 +92,8 @@ def _lcp_bwd_impl(z, s, lam, nu, Q, G, A, F, g,
     d_inv = torch.clamp(s / torch.clamp(lam, min=consts["tiny"]),
                         consts["dinv_min"], consts["dinv_max"])
     solve = _rot_factor_factory(ipm.rot_operands(Q, G, A, C), F,
-                                consts["reg"], factor_precision)(d_inv)
+                                consts["reg"], factor_precision,
+                                refine)(d_inv)
     w = solve(torch.cat([g, torch.zeros_like(s), torch.zeros_like(nu)], -1),
               trans=1)
     wz, wl, wn = w[:, :n], w[:, n:n + m], w[:, n + m:]
@@ -113,6 +116,7 @@ class _LcpSolve(torch.autograd.Function):
                               valid)
         ctx.fd = fd
         ctx.factor_precision = kw["factor_precision"]
+        ctx.refine = kw["refine"]
         return sol.z
 
     @staticmethod
@@ -121,7 +125,7 @@ class _LcpSolve(torch.autograd.Function):
         z, s, lam, nu, Q, G, A, mu, valid = ctx.saved_tensors
         grads = _lcp_bwd_impl(z, s, lam, nu, Q, G, A,
                               ConeF(mu, valid, ctx.fd), grad_z,
-                              ctx.factor_precision)
+                              ctx.factor_precision, ctx.refine)
         # valid and row_mask are masks: zero cotangent (None)
         return grads + (None, None, None, None)
 

@@ -12,16 +12,21 @@ friction-cone slack rows eliminated, the friction-pair rotation).  The
 rotated Schur system (K2 = 2C + q rows) is formed whole and factored by
 the lane LU (``ops.linalg``, K2 <= 88) or by the blocked LU over
 128-panels (K2 > 88), and solved both ways (trans=0 for the iterations,
-trans=1 for the implicit backward).  After the initial Newton solve the
-iterations run in the fused whole-IPM kernel (``ops.ipm.fused_ipm``) when
-K2 <= 48, and otherwise in the packed unfused loop of the JAX package,
-which reads one flag per iteration back to the host to stop once every
-world is done (``HOST_READS`` counts those reads).
+trans=1 for the implicit backward).  ``refine`` > 0 adds iterative
+refinement to every solve: on blocked systems of at most two panels the
+factor becomes the explicit inverse (``FWD_INV_SOLVE``) and each solve
+one matvec plus ``INV_REFINE + refine`` steps against the structured
+system; elsewhere ``refine`` steps against the assembled one.  After the
+initial Newton solve the iterations run in the fused whole-IPM kernel
+(``ops.ipm.fused_ipm``) when K2 <= 48 and refine is 0; with ``FUSE_ITER``
+set, at refine 0 and 88 < K2 <= 256, in the fused per-iteration kernel
+(``ops.ipm_iter.fused_iter_ipm``); otherwise in the packed unfused loop
+of the JAX package.  Both host loops read one flag per iteration back to
+stop once every world is done (``HOST_READS`` counts those reads).
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item:
-``refine``, ``gondzio`` and the explicit-inverse solve mode, dense Q, a
-dense F, ``m == 0`` and the systems without the friction-pair structure
-(A3, B2b).
+``gondzio``, dense Q, a dense F, ``m == 0`` and the systems without the
+friction-pair structure (A3, B2b).
 """
 from __future__ import annotations
 
@@ -31,10 +36,21 @@ from typing import NamedTuple
 import torch
 
 from lcp_physics_tpu_torch.lcp.cone import ConeF
-from lcp_physics_tpu_torch.ops import ipm, linalg
+from lcp_physics_tpu_torch.ops import ipm, ipm_iter, linalg
 
 HOST_READS = {"ipm_loop": 0}
 _SQ2 = math.sqrt(2.0)
+
+# refine > 0 on a blocked system of at most linalg.INV_MAX_PANELS panels
+# factors the rotated Schur system into its explicit inverse; each solve is
+# one batched matvec plus INV_REFINE + refine refinement steps whose
+# residual is one P2 matvec, the diagonal and the (v, c) band (the JAX
+# package's explicit-inverse solve mode, with its constants).
+FWD_INV_SOLVE = True
+INV_REFINE = 1
+# The fused per-iteration kernel (ops.ipm_iter, K6) for refine 0 and
+# 88 < K2 <= 256.  Off by default, as in the JAX package.
+FUSE_ITER = False
 
 
 class PdipmSolution(NamedTuple):
@@ -57,14 +73,25 @@ def _unported(item, what):
     return NotImplementedError(f"ROADMAP {item}: {what} is not ported yet")
 
 
-def _rot_factor_factory(operands, F, reg, factor_precision=None):
+def _solve_refined(fac, apply, rhs, trans, steps):
+    """x = K^-1 rhs (K^-T rhs for trans=1) from ``fac``, then ``steps``
+    refinement steps x += K^-1 (rhs - apply(x, trans)), ``apply`` being
+    K (or K^T) times a vector."""
+    x = linalg.plu_solve(fac, rhs, trans)
+    for _ in range(steps):
+        x = x + linalg.plu_solve(fac, rhs - apply(x, trans), trans)
+    return x
+
+
+def _rot_factor_factory(operands, F, reg, factor_precision=None, refine=0):
     r"""KKT solve operator factory ``factor(d_inv) -> solve`` for the engine
     layout with the gamma rows and the friction-pair rotation eliminated
-    (the JAX package's ``_rot_factor_factory`` at ``refine=0``; the caller
-    guarantees the layout).  ``operands`` = (P2, Ghat2, Q^-1) from
+    (the JAX package's ``_rot_factor_factory``; the caller guarantees the
+    layout).  ``operands`` = (P2, Ghat2, Q^-1) from
     ``ops.ipm.rot_operands``; ``factor_precision='highest'`` (or
     ``'float32'``) sends float32 panel inverses of the blocked factor to
-    the scalar Gauss-Jordan kernel.
+    the scalar Gauss-Jordan kernel.  ``refine`` adds refinement steps to
+    every solve (module docstring).
 
     Kept rows [c (C), f1 (C), f2 (C), q] rotate to core rows
     [c (C), v (C), q], K2 = 2C + q, with u = (f1+f2)/sqrt2 and the gamma
@@ -77,18 +104,44 @@ def _rot_factor_factory(operands, F, reg, factor_precision=None):
     returns (w, wk) without the z block (``r1_zero``: the caller
     guarantees rhs[:, :n] == 0) and ``solve.z_from(r1, wk)`` recovers z.
     ``factor.residual_ops`` are the compact residual products
-    (G z | A z) and G^T lam + A^T nu over Ghat2.
+    (G z | A z) and G^T lam + A^T nu over Ghat2; on blocked systems of at
+    most two panels ``factor.iter_inv_raw(d_inv)`` is the padded explicit
+    inverse (B, T*128, T*128) of S2, for the fused per-iteration kernel.
     """
     P2, Ghat2, qinv = operands
     n = qinv.shape[-1]
     C_ = F.C
     mg, m = 3 * C_, 4 * C_
+    K2 = P2.shape[-1]
     v_, mu_v = F.valid, F.mu
     exact = factor_precision in ("highest", "float32")
+    blocked = linalg.blocked_path(K2)
+    inv_mode = (refine > 0 and blocked and FWD_INV_SOLVE
+                and linalg.inv_supported(K2))
+
+    def make_apply_S2(dmain, bn):
+        """S2 (or S2^T) times x from its structured form: one P2 matvec (P2
+        is symmetric), the diagonal and the (v-row, c-column) band."""
+        def apply(x, trans=0):
+            y = -torch.einsum("bij,bj->bi", P2, x) - dmain * x
+            if trans == 0:
+                y[:, C_:2 * C_] += bn * x[:, :C_]
+            else:
+                y[:, :C_] += bn * x[:, C_:2 * C_]
+            return y
+        return apply
 
     def factor_rot(d_inv):
         rs = ipm.rot_schur(P2, d_inv, mu_v, v_, C_, reg)
-        fac = linalg.plu_factor(rs.S, exact)
+        if inv_mode:
+            fac = linalg.inv_factor_blocks(rs.S, exact)
+            apply, steps = make_apply_S2(rs.dmain, rs.bn), INV_REFINE + refine
+        else:
+            fac = linalg.plu_factor(rs.S, exact)
+            S = rs.S
+            apply = lambda x, trans: torch.einsum(
+                "bij,bj->bi" if trans == 0 else "bji,bj->bi", S, x)
+            steps = refine
         Dginv, cn, delta, g_u = rs.Dginv, rs.cn, rs.delta, rs.g_u
 
         def reduced(rhs, trans=0, r1_zero=False):
@@ -109,7 +162,7 @@ def _rot_factor_factory(operands, F, reg, factor_precision=None):
             if trans == 0:
                 t_u = ru - _SQ2 * v_ * tD
                 rhs2 = torch.cat([t_c, t_v - (delta / g_u) * t_u, t_q], -1)
-                wk = linalg.plu_solve(fac, rhs2, 0)
+                wk = _solve_refined(fac, apply, rhs2, 0, steps)
                 w_c, w_v = wk[:, :C_], wk[:, C_:2 * C_]
                 w_u = (t_u - _SQ2 * cn * w_c - delta * w_v) / g_u
                 wg = -Dginv * (rg - (-mu_v * w_c + _SQ2 * v_ * w_u))
@@ -120,7 +173,7 @@ def _rot_factor_factory(operands, F, reg, factor_precision=None):
                 t_u = ru + _SQ2 * v_ * tD
                 rhs2 = torch.cat([t_c - _SQ2 * cn * t_u / g_u,
                                   t_v - (delta / g_u) * t_u, t_q], -1)
-                wk = linalg.plu_solve(fac, rhs2, 1)
+                wk = _solve_refined(fac, apply, rhs2, 1, steps)
                 w_v = wk[:, C_:2 * C_]
                 w_c = wk[:, :C_]
                 w_u = (t_u - delta * w_v) / g_u
@@ -155,6 +208,12 @@ def _rot_factor_factory(operands, F, reg, factor_precision=None):
         return torch.einsum("bkn,bk->bn", Ghat2, u)
 
     factor_rot.residual_ops = (res_down, res_up)
+    if blocked and linalg.inv_supported(K2):
+        def iter_inv_raw(d_inv):
+            rs = ipm.rot_schur(P2, d_inv, mu_v, v_, C_, reg)
+            return linalg.inv_factor_blocks(rs.S, exact).inv
+
+        factor_rot.iter_inv_raw = iter_inv_raw
     return factor_rot
 
 
@@ -205,6 +264,62 @@ def _max_step(v, dv, mask):
     return torch.clamp(ratio.amin(-1), max=1.0)
 
 
+class _Packed:
+    """Residuals, merit and the best-iterate tail of the packed loops, on
+    the iterate X = [z | s | lam | nu] (B, n + 2m + q); padded rows
+    (``row_mask`` 0) are left out of the complementarity measure and the
+    residual norm."""
+
+    def __init__(self, kkt_factor, q_diag, p, h, b, F, row_mask):
+        B, n = p.shape
+        m, q = h.shape[-1], b.shape[-1]
+        dev = p.device
+        self.kkt_factor, self.q_diag, self.p, self.h, self.b, self.F = (
+            kkt_factor, q_diag, p, h, b, F)
+        self.n, self.m = n, m
+        self.maskb = row_mask > 0
+        self.maskf = row_mask.to(p.dtype)
+        self.rcount = torch.clamp(self.maskf.sum(-1), min=1.0)
+        self.rmask = torch.cat([torch.ones((B, n), dtype=torch.bool,
+                                           device=dev), self.maskb,
+                                torch.ones((B, q), dtype=torch.bool,
+                                           device=dev)], -1)
+
+    def split(self, X):
+        n, m = self.n, self.m
+        return X[:, :n], X[:, n:n + m], X[:, n + m:n + 2 * m], \
+            X[:, n + 2 * m:]
+
+    def comp_mu(self, s, lam):
+        return (s * lam * self.maskf).sum(-1) / self.rcount
+
+    def residuals(self, X):
+        z, s, lam, nu = self.split(X)
+        res_down, res_up = self.kkt_factor.residual_ops
+        ga = res_down(z)
+        rx = self.q_diag * z + self.p + res_up(lam, nu)
+        rz = ga[:, :self.m] + self.F.matvec(lam) + s - self.h
+        ry = ga[:, self.m:] - self.b
+        return torch.cat([rx, rz, ry], -1)
+
+    def resid_norm(self, r):
+        return torch.where(self.rmask, r, 0.0).abs().amax(-1)
+
+    def merit(self, X):
+        r = self.residuals(X)
+        _, s, lam, _ = self.split(X)
+        return self.comp_mu(s, lam) + self.resid_norm(r), r
+
+    def solution(self, X, bestX, best_merit, iters):
+        """The best iterate seen where it beats the final one (non-monotone
+        tails), as a :class:`PdipmSolution`."""
+        final_merit, _ = self.merit(X)
+        X = torch.where((best_merit < final_merit)[:, None], bestX, X)
+        z, s, lam, nu = self.split(X)
+        return PdipmSolution(z, s, lam, nu, self.comp_mu(s, lam),
+                             self.resid_norm(self.residuals(X)), iters)
+
+
 def unfused_loop(kkt_factor, q_diag, p, h, b, F, row_mask, z, s, lam, nu, *,
                  max_iter, tol, consts, not_improved_lim, stall_rtol):
     """The packed unfused interior-point loop of the JAX package from the
@@ -220,13 +335,8 @@ def unfused_loop(kkt_factor, q_diag, p, h, b, F, row_mask, z, s, lam, nu, *,
     m, q = h.shape[-1], b.shape[-1]
     dt, dev = p.dtype, p.device
     tiny = consts["tiny"]
-    res_down, res_up = kkt_factor.residual_ops
-    maskb = row_mask > 0
-    maskf = row_mask.to(dt)
-    rcount = torch.clamp(maskf.sum(-1), min=1.0)
-    L = n + 2 * m + q
-    zs, ss, ls, nus = (slice(0, n), slice(n, n + m),
-                       slice(n + m, n + 2 * m), slice(n + 2 * m, L))
+    pk = _Packed(kkt_factor, q_diag, p, h, b, F, row_mask)
+    maskb = pk.maskb
     sls = slice(n, n + 2 * m)
     ones_n = torch.ones((B, n), dtype=torch.bool, device=dev)
     ones_q = torch.ones((B, q), dtype=torch.bool, device=dev)
@@ -238,26 +348,8 @@ def unfused_loop(kkt_factor, q_diag, p, h, b, F, row_mask, z, s, lam, nu, *,
     pinv = torch.cat([torch.zeros((B, n), dtype=dt, device=dev), h,
                       torch.full((B, m), tiny, dtype=dt, device=dev),
                       torch.zeros((B, q), dtype=dt, device=dev)], -1)
-    rmask = torch.cat([ones_n, maskb, ones_q], -1)
     mask2 = torch.cat([maskb, maskb], -1)
-
-    def comp_mu(s, lam):
-        return (s * lam * maskf).sum(-1) / rcount
-
-    def residuals(X):
-        z, s, lam, nu = X[:, zs], X[:, ss], X[:, ls], X[:, nus]
-        ga = res_down(z)
-        rx = q_diag * z + p + res_up(lam, nu)
-        rz = ga[:, :m] + F.matvec(lam) + s - h
-        ry = ga[:, m:] - b
-        return torch.cat([rx, rz, ry], -1)
-
-    def resid_norm(r):
-        return torch.where(rmask, r, 0.0).abs().amax(-1)
-
-    def merit_of(X):
-        r = residuals(X)
-        return comp_mu(X[:, ss], X[:, ls]) + resid_norm(r), r
+    comp_mu = pk.comp_mu
 
     X = torch.cat([z, s, lam, nu], -1)
     bestX = X
@@ -270,8 +362,8 @@ def unfused_loop(kkt_factor, q_diag, p, h, b, F, row_mask, z, s, lam, nu, *,
             HOST_READS["ipm_loop"] += 1
             if bool(done.all()):
                 break
-        merit, r = merit_of(X)
-        s, lam = X[:, ss], X[:, ls]
+        merit, r = pk.merit(X)
+        _, s, lam, _ = pk.split(X)
         mu = comp_mu(s, lam)
         improved = merit < best_merit
         bestX = torch.where(improved[:, None], X, bestX)
@@ -324,13 +416,7 @@ def unfused_loop(kkt_factor, q_diag, p, h, b, F, row_mask, z, s, lam, nu, *,
         halt = new_done | bad
         X = torch.where(halt[:, None], X, X_n)
         done = done | halt
-
-    # the best iterate seen (non-monotone tails)
-    final_merit, _ = merit_of(X)
-    X = torch.where((best_merit < final_merit)[:, None], bestX, X)
-    z, s, lam, nu = X[:, zs], X[:, ss], X[:, ls], X[:, nus]
-    return PdipmSolution(z, s, lam, nu, comp_mu(s, lam),
-                         resid_norm(residuals(X)), iters)
+    return pk.solution(X, bestX, best_merit, iters)
 
 
 def pdipm_solve(Q, p, G, h, A, b, F, *, max_iter=20, tol=1e-7,
@@ -351,9 +437,8 @@ def pdipm_solve(Q, p, G, h, A, b, F, *, max_iter=20, tol=1e-7,
         raise _unported("A3", "the solver for a dense Q")
     if not isinstance(F, ConeF):
         raise _unported("A3", "the solver for a dense F")
-    if refine or gondzio:
-        raise _unported("A3", "refine/gondzio (and the explicit-inverse "
-                        "solve mode refine selects)")
+    if gondzio:
+        raise _unported("A3", "gondzio")
     batched, (Q, p, G, h, A, b, mu_f, v_f) = _expand_batch(
         (Q, p, G, h, A, b, F.mu, F.valid), (1, 1, 2, 1, 2, 1, 1, 1))
     F = ConeF(mu_f, v_f, F.fd)
@@ -373,15 +458,25 @@ def pdipm_solve(Q, p, G, h, A, b, F, *, max_iter=20, tol=1e-7,
     row_mask = row_mask.expand(B, m).to(dt)
     operands = ipm.rot_operands(Q, G, A, F.C)
     kkt_factor = _rot_factor_factory(operands, F, consts["reg"],
-                                     factor_precision)
+                                     factor_precision, refine)
     z, s, lam, nu = _start(kkt_factor, p, h, b, row_mask, consts)
     kw = dict(max_iter=max_iter, tol=tol, consts=consts,
               not_improved_lim=not_improved_lim,
               stall_rtol=float(stall_rtol))
-    if ipm.fused_supported(m - F.C, q, F.C, F.fd, fric_pair=True):
+    plain_mehrotra = refine == 0 and gondzio == 0
+    if plain_mehrotra and ipm.fused_supported(m - F.C, q, F.C, F.fd,
+                                              fric_pair=True):
         sol = PdipmSolution(*ipm.fused_ipm(
             operands, p, h, b, F.mu, F.valid, row_mask, z, s, lam, nu,
             C=F.C, fd=F.fd, fric_pair=True, **kw))
+    elif FUSE_ITER and plain_mehrotra and ipm_iter.fused_iter_supported(
+            F.C, q):
+        X, bestX, best_merit, iters = ipm_iter.fused_iter_ipm(
+            operands[1], operands[2], p, h, b, F.mu, F.valid, row_mask,
+            torch.cat([z, s, lam, nu], -1), C=F.C,
+            inv_raw=kkt_factor.iter_inv_raw, host_reads=HOST_READS, **kw)
+        sol = _Packed(kkt_factor, Q, p, h, b, F, row_mask).solution(
+            X, bestX, best_merit, iters)
     else:
         sol = unfused_loop(kkt_factor, Q, p, h, b, F, row_mask, z, s, lam,
                            nu, **kw)

@@ -8,6 +8,7 @@ unchanged one is loaded as it is.  Nothing here runs at import time.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -82,6 +83,15 @@ def load(name) -> ctypes.CDLL:
         lib.lcp_set_device.restype = ctypes.c_int
         _libs[name] = lib
         return lib
+
+
+def load_all():
+    """Build where needed and load every ``csrc/*.cu`` library at once, one
+    nvcc per source; returns the library names."""
+    names = sorted(p.stem for p in CSRC.glob("*.cu"))
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as ex:
+        list(ex.map(load, names))
+    return names
 
 
 def check(lib, code, what):

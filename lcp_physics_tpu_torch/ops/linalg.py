@@ -18,7 +18,11 @@ with the JAX package's boundary:
   ``gj_inv`` at float64 or when ``exact`` is asked for (both in
   ``csrc/gj_inv.cu``).  The panel products around them are
   ``torch.matmul`` in the input dtype, as the JAX package leaves them to
-  XLA.
+  XLA;
+* explicit inverse (``MAX_LANE_N`` < n, at most ``INV_MAX_PANELS``
+  panels): the whole inverse from the same panel kernels by the 2x2
+  block-Schur identity (:class:`InvFactor`), each solve one batched
+  matvec — the interior-point solver's factor when it refines its solves.
 
 ``plu_factor`` / ``plu_solve`` route by size.  Each kernel wrapper
 dispatches on the device of its tensors: on a CUDA tensor it launches the
@@ -295,36 +299,55 @@ def _gj_inverse(K, exact=False):
     if not exact and K.dtype == torch.float32 and P % GJ_BLOCK == 0:
         if P >= 128 and (P // 2) % GJ_BLOCK == 0:
             H = P // 2
-            A_, B_ = K[:, :H, :H], K[:, :H, H:]
-            C_, D_ = K[:, H:, :H], K[:, H:, H:]
-            Ainv = _gj_inverse(A_)
-            X = Ainv @ B_
-            Y = C_ @ Ainv
-            Sinv = _gj_inverse(D_ - C_ @ X)
-            M21 = -(Sinv @ Y)
-            M12 = -(X @ Sinv)
-            M11 = Ainv - X @ M21
-            return torch.cat([torch.cat([M11, M12], -1),
-                              torch.cat([M21, Sinv], -1)], -2)
+            return _block_inverse(K[:, :H, :H], K[:, :H, H:], K[:, H:, :H],
+                                  K[:, H:, H:], _gj_inverse)
         return gj_inv_blocked(K.contiguous())
     return gj_inv(K.contiguous())
 
 
-def plu_factor_blocks(K, exact=False):
-    """Blocked factorization of K (B, n, n), n past the lane path: K padded
-    to a multiple of PANEL (identity on the padded diagonal), then the
-    right-looking block LU.  Returns a :class:`BlockedFactor`."""
+def _block_inverse(A_, B_, C_, D_, inverse):
+    """[[A, B], [C, D]]^-1 by the 2x2 block-Schur identity
+
+        [[A^-1 + X S^-1 Y, -X S^-1], [-S^-1 Y, S^-1]],
+        X = A^-1 B,  Y = C A^-1,  S = D - C X,
+
+    with ``inverse`` for the two diagonal inverses and ``torch.matmul``
+    for the block products."""
+    Ainv = inverse(A_)
+    X = Ainv @ B_
+    Y = C_ @ Ainv
+    Sinv = inverse(D_ - C_ @ X)
+    M21 = -(Sinv @ Y)
+    M12 = -(X @ Sinv)
+    M11 = Ainv - X @ M21
+    return torch.cat([torch.cat([M11, M12], -1),
+                      torch.cat([M21, Sinv], -1)], -2)
+
+
+def _panel_grid(K, what):
+    """K (B, n, n), n past the lane path, padded to T PANEL-wide panels
+    (identity on the padded diagonal) as the T x T grid of its
+    (B, PANEL, PANEL) blocks."""
     B, n = K.shape[0], K.shape[-1]
     if not blocked_path(n):
-        raise ValueError(f"plu_factor_blocks takes n > {MAX_LANE_N}, got {n}")
+        raise ValueError(f"{what} takes n > {MAX_LANE_N}, got {n}")
     T = _ru(n, PANEL) // PANEL
     Kp = K
     if T * PANEL > n:
         Kp = K.new_zeros((B, T * PANEL, T * PANEL))
         Kp[:, :n, :n] = K
         Kp.diagonal(dim1=1, dim2=2)[:, n:] = 1.0
-    blk = [[Kp[:, t * PANEL:(t + 1) * PANEL, s * PANEL:(s + 1) * PANEL]
-            for s in range(T)] for t in range(T)]
+    return [[Kp[:, t * PANEL:(t + 1) * PANEL, s * PANEL:(s + 1) * PANEL]
+             for s in range(T)] for t in range(T)]
+
+
+def plu_factor_blocks(K, exact=False):
+    """Blocked factorization of K (B, n, n), n past the lane path: K padded
+    to a multiple of PANEL (identity on the padded diagonal), then the
+    right-looking block LU.  Returns a :class:`BlockedFactor`."""
+    n = K.shape[-1]
+    blk = _panel_grid(K, "plu_factor_blocks")
+    T = len(blk)
     binvs = []
     for t in range(T):
         binv_t = _gj_inverse(blk[t][t], exact)
@@ -377,6 +400,55 @@ def _blocked_solve(fac, r, trans=0):
     return torch.cat(xs, dim=-1)[:, :n]
 
 
+# ---------------------------------------------------------------------------
+# The explicit-inverse factor (systems of at most INV_MAX_PANELS panels).
+# ---------------------------------------------------------------------------
+
+INV_MAX_PANELS = 2
+
+
+def inv_supported(n):
+    """Whether an n-row system fits the explicit-inverse factor."""
+    return _ru(n, PANEL) // PANEL <= INV_MAX_PANELS
+
+
+class InvFactor(NamedTuple):
+    """The explicit inverse (B, T*PANEL, T*PANEL) of K padded to whole
+    panels (identity on the padding), ``n`` the unpadded size."""
+
+    inv: torch.Tensor
+    n: int
+
+
+def inv_factor_blocks(K, exact=False):
+    """Explicit inverse of K (B, n, n), n past the lane path and at most
+    INV_MAX_PANELS panels, padded as :func:`plu_factor_blocks` pads it:
+    for T = 1 the panel inverse, for T = 2 :func:`_block_inverse` over the
+    2x2 panel grid, every panel inverse by ``_gj_inverse``.  Returns an
+    :class:`InvFactor`, which :func:`plu_solve` solves with one batched
+    matvec."""
+    n = K.shape[-1]
+    if not inv_supported(n):
+        raise ValueError(f"inv_factor_blocks takes at most {INV_MAX_PANELS}"
+                         f" panels, got n={n}")
+    blk = _panel_grid(K, "inv_factor_blocks")
+    if len(blk) == 1:
+        return InvFactor(_gj_inverse(blk[0][0], exact), n)
+    (A_, B_), (C_, D_) = blk
+    return InvFactor(_block_inverse(A_, B_, C_, D_,
+                                    lambda P: _gj_inverse(P, exact)), n)
+
+
+def _inv_solve(fac, r, trans=0):
+    """x = K^-1 r (trans=0) or K^-T r (trans=1): one batched matvec with
+    the stored inverse."""
+    inv, n = fac
+    rp = r.new_zeros((r.shape[0], inv.shape[-1]))
+    rp[:, :n] = r
+    eq = "bij,bj->bi" if trans == 0 else "bij,bi->bj"
+    return torch.einsum(eq, inv, rp)[:, :n]
+
+
 def plu_factor(K, exact=False):
     """Pivotless LU of K (B, n, n): the lane factor (a (B, n, n) tensor)
     for n <= MAX_LANE_N, the blocked factor (:class:`BlockedFactor`) up to
@@ -392,14 +464,18 @@ def plu_factor(K, exact=False):
 
 def plu_solve(fac, r, trans=0):
     """Solve K x = r (trans=0) or K^T x = r (trans=1) from
-    :func:`plu_factor`'s or :func:`plu_factor_blocks`' result; r (B, n)."""
+    :func:`plu_factor`'s, :func:`plu_factor_blocks`' or
+    :func:`inv_factor_blocks`' result; r (B, n)."""
     if trans not in (0, 1):
         raise ValueError(f"trans must be 0 or 1, got {trans}")
     B, n = r.shape
-    if isinstance(fac, BlockedFactor):
-        if fac.n != n or fac.binv.shape[0] != B:
-            raise ValueError(f"blocked factor (B={fac.binv.shape[0]}, "
-                             f"n={fac.n}) does not match rhs {(B, n)}")
+    if isinstance(fac, (BlockedFactor, InvFactor)):
+        Bf = (fac.binv if isinstance(fac, BlockedFactor) else fac.inv).shape[0]
+        if fac.n != n or Bf != B:
+            raise ValueError(f"{type(fac).__name__} (B={Bf}, n={fac.n}) does "
+                             f"not match rhs {(B, n)}")
+        if isinstance(fac, InvFactor):
+            return _inv_solve(fac, r, trans)
         return _blocked_solve(fac, r, trans)
     if fac.shape != (B, n, n):
         raise ValueError(f"factor {tuple(fac.shape)} does not match rhs "

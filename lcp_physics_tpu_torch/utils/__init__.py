@@ -55,10 +55,17 @@ class SimConfig:
       backward's products are full float32 already.
     * ``stop_contact_grad`` stops gradients through the contact geometry
       (normals, offsets, depths), as in the JAX package.
-    * ``post_stabilization``, ``penetration_backtrack`` (ROADMAP A6),
-      ``solver_refine`` and ``solver_gondzio`` (ROADMAP A3) raise until
-      they are ported.  ``hull_pair_budget`` only acts on hull pairs, which the
-      port's narrowphase does not take yet (ROADMAP A5).
+    * ``solver_refine`` > 0 refines every KKT solve, forward and backward,
+      as in the JAX package: on systems of 89 to 256 rotated rows the
+      factor is the explicit inverse and each solve takes
+      ``lcp.pdipm.INV_REFINE + solver_refine`` refinement steps against
+      the structured system; elsewhere ``solver_refine`` steps against the
+      assembled one.  Like the JAX package's dispatch, it keeps the solve
+      out of the fused whole-IPM kernel.
+    * ``post_stabilization``, ``penetration_backtrack`` (ROADMAP A6) and
+      ``solver_gondzio`` (ROADMAP A3) raise until they are ported.
+      ``hull_pair_budget`` only acts on hull pairs, which the port's
+      narrowphase does not take yet (ROADMAP A5).
     """
 
     fric_dirs: int = Defaults.FRIC_DIRS

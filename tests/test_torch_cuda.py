@@ -130,3 +130,71 @@ def test_blocked_factor_on_the_card_matches_plain_f64(dev):
         x = linalg.plu_solve(fac, r, trans)
         res = torch.einsum("bij,bj->bi", Kop, x) - r
         assert float(res.abs().max()) <= 1e-9
+
+
+@pytest.mark.parametrize("dtype,lims", [
+    # f32: the direction is a matvec against an explicit inverse with
+    # cancellation, summed in another order than plain's
+    (torch.float32, (1e-3, 1e-3)),
+    (torch.float64, (1e-10, 1e-8))])
+@pytest.mark.parametrize("C,q", [(48, 8), (70, 2)])
+def test_ipm_iter_kernel_matches_plain(dev, C, q, dtype, lims):
+    """K6 against its plain iteration, per world: one iteration from the
+    same inputs (X, bestX, state), then runs capped at 3 iterations (z and
+    lam).  K2 = 104 (one panel, equality rows) and 144 (two panels); 130
+    worlds, no multiple of a lane width."""
+    from lcp_physics_tpu_torch.lcp.pdipm import _rot_factor_factory, _start
+    from lcp_physics_tpu_torch.ops import ipm_iter
+    rng = np.random.default_rng(C + q)
+    qd, p, G, h, A, b, mu, valid, rmask = (
+        torch.tensor(x, dtype=dtype, device=dev)
+        for x in engine_instance(rng, 130, 64, C, q))
+    consts = _dtype_consts(dtype)
+    ops = ipm.rot_operands(qd, G, A, C)
+    fac = _rot_factor_factory(ops, ConeF(mu, valid), consts["reg"])
+    X0 = torch.cat(_start(fac, p, h, b, rmask, consts), -1)
+    n, m = p.shape[1], 4 * C
+    d_inv = torch.clamp(X0[:, n:n + m] / X0[:, n + m:n + 2 * m],
+                        consts["dinv_min"], consts["dinv_max"])
+    vecs = (ops[1], ops[2], p, h, b, mu, valid, rmask)
+    state = ipm_iter.initial_state(130, 10, dtype, dev)
+    kw = dict(C=C, consts=consts, tol=1e-8, not_improved_lim=3,
+              stall_rtol=0.0)
+    a = (fac.iter_inv_raw(d_inv), *vecs, X0, X0, state, 0)
+    before = ipm_iter.LAUNCHES["ipm_iter"]
+    got = ipm_iter.iteration(*a, **kw)
+    assert ipm_iter.LAUNCHES["ipm_iter"] == before + 1
+    for g, r in zip(got, ipm_iter._iter_ref(*a, **kw)):
+        err = (g - r).abs().amax(-1) / r.abs().amax(-1).clamp_min(1e-300)
+        assert float(err.max()) <= lims[0]
+    cap = dict(C=C, consts=consts, max_iter=3, tol=0.0, not_improved_lim=0,
+               inv_raw=fac.iter_inv_raw)
+    g3 = ipm_iter.fused_iter_ipm(*vecs, X0, **cap)
+    r3 = ipm_iter.fused_iter_ipm_ref(*vecs, X0, **cap)
+    for sl in (slice(0, n), slice(n + m, n + 2 * m)):
+        g_, r_ = g3[0][:, sl], r3[0][:, sl]
+        err = (g_ - r_).abs().amax(-1) / r_.abs().amax(-1).clamp_min(1e-300)
+        assert float(err.max()) <= lims[1]
+    assert torch.equal(g3[3], r3[3])
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.float64, 1e-10)])
+@pytest.mark.parametrize("n", [100, 200])
+def test_inv_factor_on_the_card_matches_plain(dev, n, dtype, tol):
+    """The explicit-inverse factor through the panel kernels (K4 at f32,
+    K5 at f64) against the plain versions on the CPU, and its solves."""
+    rng = np.random.default_rng(n)
+    K = torch.tensor(kkt_batch(rng, 64, n), dtype=dtype)
+    r = torch.tensor(rng.standard_normal((64, n)), dtype=dtype)
+    fac = linalg.inv_factor_blocks(K.to(dev))
+    ref = linalg.inv_factor_blocks(K)
+    err = (fac.inv.cpu() - ref.inv).abs().amax((1, 2)) \
+        / ref.inv.abs().amax((1, 2))
+    assert float(err.max()) <= tol
+    check_residual(K.to(dev)[:, :n, :n], fac.inv[:, :n, :n],
+                   ref.inv[:, :n, :n].to(dev))
+    for trans, Kop in ((0, K), (1, K.transpose(1, 2))):
+        x = linalg.plu_solve(fac, r.to(dev), trans).cpu()
+        res = torch.einsum("bij,bj->bi", Kop.double(), x.double()) - r
+        assert float(res.abs().max() / r.abs().max()) <= 10 * tol

@@ -11,6 +11,7 @@ import torch
 
 from lcp_physics_tpu.lcp import lcp_solve as jax_lcp_solve
 from test_fused_ipm import engine_instance
+from test_torch_pdipm import one_torch_thread  # noqa: F401
 
 from lcp_physics_tpu_torch.lcp import ConeF, lcp_solve
 

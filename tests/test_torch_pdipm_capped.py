@@ -11,7 +11,7 @@ import pytest
 
 from test_fused_ipm import engine_instance
 from test_pdipm import _engine_layout_instance
-from test_torch_pdipm import solve_both
+from test_torch_pdipm import one_torch_thread, solve_both  # noqa: F401
 
 from lcp_physics_tpu_torch.lcp import pdipm
 

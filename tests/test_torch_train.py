@@ -37,6 +37,7 @@ from lcp_physics_tpu.parallel import make_batched_step as jax_batched_step
 from lcp_physics_tpu.utils import SimConfig as JaxSimConfig
 
 from chip_smoke import DT, grid_start, line_start, train_scene, train_step
+from test_torch_pdipm import one_torch_thread  # noqa: F401
 from lcp_physics_tpu_torch.ops import linalg
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "data",
@@ -94,20 +95,48 @@ def check(got, want, tol):
                                    err_msg=name)
 
 
-def golden_record():
+RECORD_KEYS = ("p0", "v0", "loss", "grad_mass", "grad_restitution",
+               "grad_fric_coeff", "grad_v0")
+
+
+def golden_record(writer="tests/test_torch_train.py", **cfg):
+    """The JAX record of the grid scene; ``cfg`` adds SimConfig fields,
+    which the record keeps under "config"."""
     p0, v0 = grid_start(GRID["B"], GRID["side"])
-    loss, grads = grid_jax()
-    return dict(
+    loss, grads = grid_jax(**cfg)
+    extra = "".join(f", {k}={v!r}" for k, v in cfg.items())
+    rec = dict(
         about=("JAX package (lcp_backend='pallas', f64, CPU): the touching "
                "grid of bench.py::build_world_scene(dense=True) cut to 4x4 "
                "radius-1 circles, c_max=72, B=2 worlds, dt=0.01, 2 steps, "
-               "SimConfig(max_iter=12, solver_eps=1e-5), restitution 0.4, "
-               "gravity (0, 10); loss mean(p^2) of the final state and its "
-               "gradients; written by tests/test_torch_train.py"),
+               f"SimConfig(max_iter=12, solver_eps=1e-5{extra}), "
+               "restitution 0.4, gravity (0, 10); loss mean(p^2) of the "
+               f"final state and its gradients; written by {writer}"),
         c_max=GRID["c_max"], steps=GRID["steps"],
         p0=p0.tolist(), v0=v0.tolist(), loss=loss,
         **{f"grad_{k}": g.tolist() for k, g in zip(
             ("mass", "restitution", "fric_coeff", "v0"), grads)})
+    if cfg:
+        rec["config"] = cfg
+    return rec
+
+
+def check_record(path, new):
+    """The stored record at ``path`` against a freshly computed one."""
+    with open(path) as f:
+        rec = json.load(f)
+    assert rec.get("config", {}) == new.get("config", {})
+    for k in RECORD_KEYS:
+        np.testing.assert_allclose(np.asarray(rec[k]), np.asarray(new[k]),
+                                   rtol=1e-12, atol=1e-14, err_msg=k)
+
+
+def write_record(path, rec):
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(rec, f)
+        f.write("\n")
+    print("wrote", path)
 
 
 def test_grid_train_step_matches_jax():
@@ -171,20 +200,10 @@ def test_factor_precision_routes_the_panel_kernels(monkeypatch, precision):
 
 
 def test_train_golden_record_matches_jax():
-    with open(GOLDEN) as f:
-        rec = json.load(f)
-    new = golden_record()
-    for k in ("p0", "v0", "loss", "grad_mass", "grad_restitution",
-              "grad_fric_coeff", "grad_v0"):
-        np.testing.assert_allclose(np.asarray(rec[k]), np.asarray(new[k]),
-                                   rtol=1e-12, atol=1e-14, err_msg=k)
+    check_record(GOLDEN, golden_record())
 
 
 if __name__ == "__main__":
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
-    os.makedirs(os.path.dirname(GOLDEN), exist_ok=True)
-    with open(GOLDEN, "w") as f:
-        json.dump(golden_record(), f)
-        f.write("\n")
-    print("wrote", GOLDEN)
+    write_record(GOLDEN, golden_record())
