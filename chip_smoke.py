@@ -39,10 +39,10 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    iterations, a full f32 run against plain's one-ulp spread).
 6. Path (a), the accuracy profile: the dense training step with
    SimConfig(solver_refine=1) (the explicit-inverse factor with two
-   refinement steps per solve, forward and backward), its capped one-step
-   gradient against plain, the B = 2 f64 JAX record
-   ``tests/data/torch_refine_golden.json``, and the first step's median
-   final merit at refine 0 and 1.
+   refinement steps per solve, forward and backward), timed in turns with
+   refine 0, its capped one-step gradient against plain, the B = 2 f64 JAX
+   record ``tests/data/torch_refine_golden.json``, and the first step's
+   median final merit at refine 0 and 1.
 7. The card's name and power limit, a JSON line listing every kernel
    (``ms``, ``plain_ms``, ``library_ms`` — one PyTorch call computing the
    same function where there is one, timed here only —, ``bound_ms`` and
@@ -72,9 +72,10 @@ GJ_RES_RATIO = 4   # a panel kernel's ||K X - I|| against its plain version's
 LINE_B, LINE_STEPS = 64, 20
 ITER_B64 = 32   # K6 at float64: worlds of the dense scene
 # The H100 SXM's published peaks (NVIDIA's data sheet; full 700 W power
-# limit): HBM3 bytes/s, and FLOP/s outside the tensor cores by item size.
+# limit): HBM3 bytes/s, and the highest FLOP/s for each item size without
+# reduced precision: float32 outside the tensor cores, float64 on them.
 PEAK_BYTES = 3.35e12
-PEAK_FLOPS = {4: 67e12, 8: 34e12}
+PEAK_FLOPS = {4: 67e12, 8: 67e12}
 
 
 def check(ok, what):
@@ -814,6 +815,11 @@ def phase_ipm_iter(torch, dev):
         vecs, X0, fac, consts = iter_operands(torch, lcp)
         C = lcp["F"].C
         n, m = vecs[2].shape[1], 4 * C
+        q = vecs[4].shape[1]
+        need = ipm_iter._lib().lcp_ipm_iter_smem_bytes(n, m, q, C, int(f64))
+        check(ipm_iter.smem_bytes(n, C, q, X0.element_size()) == need,
+              f"K6 {tag}: the dispatch's shared-memory count equals the "
+              f"kernel's ({need} B per world)")
         d_inv = torch.clamp(X0[:, n:n + m] / torch.clamp(
             X0[:, n + m:n + 2 * m], min=consts["tiny"]), consts["dinv_min"],
             consts["dinv_max"])
@@ -977,16 +983,18 @@ def phase_refine(torch, dev, smi):
     B = 256 f32 (the explicit inverse through K4, two refinement steps per
     solve, forward and backward); the capped one-step v0-gradient against
     plain per world; the B = 2 f64 record at refine 1; the median final
-    merit of the first step's worlds at refine 0 and 1.  Returns the
-    launch counts."""
+    merit of the first step's worlds at refine 0 and 1; ms per fwd+bwd at
+    refine 0 and 1 in turns.  Returns the launch counts."""
     from lcp_physics_tpu_torch.lcp import lcp_solve_full
     f32 = torch.float32
     p0, v0 = grid_start(TRAIN_B, TRAIN_SIDE)
-    step, params, state = train_scene(torch, dev, f32, p0, v0, TRAIN_C,
-                                      solver_refine=1)
-    train_step(torch, step, params, state, 1)      # warm-up, not counted
+    scenes = {r: train_scene(torch, dev, f32, p0, v0, TRAIN_C,
+                             solver_refine=r) for r in (0, 1)}
+    for r in (0, 1):
+        train_step(torch, *scenes[r], 1)           # warm-ups, not counted
+    step, params, state = scenes[1]
     reset_counts()
-    loss, grads, sec = timed_train(torch, step, params, state, TRAIN_STEPS)
+    loss, grads, _ = timed_train(torch, step, params, state, TRAIN_STEPS)
     launches = launch_counts()
     print(f"path (a) launches over {TRAIN_STEPS} steps, fwd+bwd: {launches}",
           flush=True)
@@ -994,9 +1002,14 @@ def phase_refine(torch, dev, smi):
           "the refine=1 training step launched K4")
     check(all_finite(torch, loss, grads),
           f"refine=1 f32 loss {float(loss):.6e} and its gradients are finite")
-    print(f"dense training step at solver_refine=1: {1e3 * sec:.1f} ms per "
-          f"fwd+bwd, {TRAIN_B * TRAIN_STEPS / sec:,.0f} grad-world-steps/s "
-          f"(B={TRAIN_B}, f32, {TRAIN_STEPS} steps; {smi})", flush=True)
+    times = {0: [], 1: []}
+    for r in (0, 1, 1, 0):
+        times[r].append(timed_train(torch, *scenes[r], TRAIN_STEPS)[2])
+    for r in (0, 1):
+        ms = ", ".join(f"{1e3 * t:.1f}" for t in times[r])
+        print(f"dense training step at solver_refine={r}: {ms} ms per "
+              f"fwd+bwd (B={TRAIN_B}, f32, {TRAIN_STEPS} steps, in turns "
+              f"refine 0, 1, 1, 0; {smi})", flush=True)
     per_step(torch, "dense training step at solver_refine=1",
              lambda: train_step(torch, step, params, state, TRAIN_STEPS),
              TRAIN_STEPS, smi)

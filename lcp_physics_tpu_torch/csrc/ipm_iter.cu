@@ -65,6 +65,7 @@ struct Smem {
 };
 
 // Assigns the arrays (when S is not null) and returns the element count.
+// ops/ipm_iter.py::smem_bytes repeats the count for the dispatch.
 template <typename T>
 __host__ __device__ inline size_t carve(Smem<T>* S, T* base, int n, int m,
                                         int q, int C) {

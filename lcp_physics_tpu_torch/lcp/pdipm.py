@@ -14,10 +14,10 @@ the lane LU (``ops.linalg``, K2 <= 88) or by the blocked LU over
 128-panels (K2 > 88), and solved both ways (trans=0 for the iterations,
 trans=1 for the implicit backward).  ``refine`` > 0 adds iterative
 refinement to every solve: on blocked systems of at most two panels the
-factor becomes the explicit inverse (``FWD_INV_SOLVE``) and each solve
-one matvec plus ``INV_REFINE + refine`` steps against the structured
-system; elsewhere ``refine`` steps against the assembled one.  After the
-initial Newton solve the iterations run in the fused whole-IPM kernel
+factor becomes the explicit inverse and each solve one matvec plus
+``INV_REFINE + refine`` steps against the structured system; elsewhere
+``refine`` steps against the assembled one.  After the initial Newton
+solve the iterations run in the fused whole-IPM kernel
 (``ops.ipm.fused_ipm``) when K2 <= 48 and refine is 0; with ``FUSE_ITER``
 set, at refine 0 and 88 < K2 <= 256, in the fused per-iteration kernel
 (``ops.ipm_iter.fused_iter_ipm``); otherwise in the packed unfused loop
@@ -45,8 +45,7 @@ _SQ2 = math.sqrt(2.0)
 # factors the rotated Schur system into its explicit inverse; each solve is
 # one batched matvec plus INV_REFINE + refine refinement steps whose
 # residual is one P2 matvec, the diagonal and the (v, c) band (the JAX
-# package's explicit-inverse solve mode, with its constants).
-FWD_INV_SOLVE = True
+# package's explicit-inverse solve mode).
 INV_REFINE = 1
 # The fused per-iteration kernel (ops.ipm_iter, K6) for refine 0 and
 # 88 < K2 <= 256.  Off by default, as in the JAX package.
@@ -116,8 +115,7 @@ def _rot_factor_factory(operands, F, reg, factor_precision=None, refine=0):
     v_, mu_v = F.valid, F.mu
     exact = factor_precision in ("highest", "float32")
     blocked = linalg.blocked_path(K2)
-    inv_mode = (refine > 0 and blocked and FWD_INV_SOLVE
-                and linalg.inv_supported(K2))
+    inv_mode = refine > 0 and blocked and linalg.inv_supported(K2)
 
     def make_apply_S2(dmain, bn):
         """S2 (or S2^T) times x from its structured form: one P2 matvec (P2
@@ -470,7 +468,7 @@ def pdipm_solve(Q, p, G, h, A, b, F, *, max_iter=20, tol=1e-7,
             operands, p, h, b, F.mu, F.valid, row_mask, z, s, lam, nu,
             C=F.C, fd=F.fd, fric_pair=True, **kw))
     elif FUSE_ITER and plain_mehrotra and ipm_iter.fused_iter_supported(
-            F.C, q):
+            F.C, q, n, p.element_size()):
         X, bestX, best_merit, iters = ipm_iter.fused_iter_ipm(
             operands[1], operands[2], p, h, b, F.mu, F.valid, row_mask,
             torch.cat([z, s, lam, nu], -1), C=F.C,

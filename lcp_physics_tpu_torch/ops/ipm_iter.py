@@ -39,15 +39,28 @@ LAUNCHES = {"ipm_iter": 0}
 _SQ2 = math.sqrt(2.0)
 
 
-def fused_iter_supported(C, q):
-    """Whether the rotated system K2 = 2C + q takes the fused per-iteration
-    loop: 88 < ru(K2, 8) and K2 <= MAX_ITER_K, the JAX package's rule.  Its
-    other two terms are Mosaic tiling policy and are not carried over: a
-    batch that is a multiple of 128 lanes, and a VMEM budget for the
-    inverse and Ghat2 (at K2 = 256 it admits n up to about 246).  Within
-    them the port takes the kernel exactly where the JAX package does."""
+def smem_bytes(n, C, q, itemsize):
+    """Shared memory the kernel needs per world: the arrays that
+    ``carve`` in csrc/ipm_iter.cu lays out, for m = 4C rows."""
+    m, K2 = 4 * C, 2 * C + q
+    elems = (n + 2 * m + q) + 6 * n + 11 * m + 3 * max(q, 1) + 7 * C \
+        + 6 * K2 + 32
+    return elems * itemsize
+
+
+def fused_iter_supported(C, q, n, itemsize):
+    """Whether the rotated system K2 = 2C + q with n unknowns takes the
+    fused per-iteration loop: 88 < ru(K2, 8) and K2 <= MAX_ITER_K, the JAX
+    package's rule, and the world's vectors fit the kernel's shared memory
+    (``smem_bytes``; past it the unfused loop runs, as the JAX package's
+    VMEM term sends large n there).  Its other two terms are Mosaic tiling
+    policy and are not carried over: a batch that is a multiple of 128
+    lanes, and the VMEM budget itself (at K2 = 256 it admits n up to about
+    246; shared memory admits n up to about 2,800 at f64).  Within them
+    the port takes the kernel exactly where the JAX package does."""
     K2 = 2 * C + q
-    return _ru(K2, 8) > MAX_LANE_N and K2 <= MAX_ITER_K
+    return (_ru(K2, 8) > MAX_LANE_N and K2 <= MAX_ITER_K
+            and smem_bytes(n, C, q, itemsize) <= SMEM_LIMIT)
 
 
 def initial_state(B, max_iter, dtype, device):

@@ -130,6 +130,32 @@ def test_fused_iter_dispatch_matches_jax(K2, fuse_iter, monkeypatch):
     assert took == {"jax": K2 in (90, 256), "port": K2 in (90, 256)}
 
 
+@pytest.mark.parametrize("n,fused", [(3689, True), (3690, False)])
+def test_fused_iter_dispatch_within_shared_memory(n, fused, fuse_iter,
+                                                  monkeypatch):
+    """At f64 and K2 = 90 the kernel's 232,448 B of shared memory per world
+    hold the vectors of at most 3,689 unknowns; past that the port runs the
+    unfused loop, as the JAX package's VMEM term sends large n to its
+    own."""
+    def stop(*a, **k):
+        raise Dispatched
+
+    monkeypatch.setattr(ipm_iter, "fused_iter_ipm", stop)
+    C = 45
+    assert (ipm_iter.smem_bytes(n, C, 0, 8) <= ipm_iter.SMEM_LIMIT) == fused
+    qd, p, G, h, _, _, F, rmask = engine_instance(np.random.default_rng(n),
+                                                  1, n, C, pair=True)
+    t = to_port(qd, p, G, h, F.mu, F.valid, rmask)
+    try:
+        lcp_solve_full(*t[:4], None, None, ConeF(t[4], t[5], 2),
+                       row_mask=t[6], max_iter=1, tol=0.0, q_is_diag=True,
+                       gamma_rows=C, fric_pair=True, not_improved_lim=0)
+        took = False
+    except Dispatched:
+        took = True
+    assert took == fused
+
+
 def test_fused_iter_gradients_match_jax(fuse_iter):
     """Gradients of lcp_solve through the port's fused per-iteration loop
     against jax.grad, on the worlds whose duals agree (as
