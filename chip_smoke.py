@@ -7,11 +7,13 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 1. Device: the card's name and power limit, torch and CUDA versions; builds
    the CUDA kernels from ``lcp_physics_tpu_torch/csrc`` (one nvcc per
    source, all at once) and times the build.
-2. Kernels: each kernel (LU factor, substitution, fused IPM, blocked and
-   scalar Gauss-Jordan panel inverse, fused IPM iteration) against its
-   plain torch version on the card, float32 and float64, with CUDA-event
-   timings (median of 20) of kernel, plain version and library call; the
-   panel inverses also by ||K X - I|| against the plain version's own.
+2. Kernels: each kernel (LU factor, substitution, fused IPM rotated (K3)
+   and unrotated (K3u, instances without the +- friction pair, fd 2 and
+   1), blocked and scalar Gauss-Jordan panel inverse, fused IPM
+   iteration) against its plain torch version on the card, float32 and
+   float64, with CUDA-event timings (median of 20) of kernel, plain
+   version and library call; the panel inverses also by ||K X - I||
+   against the plain version's own.
 3. The forward slice: the batched 8-circle contact rollout of the LCP
    benchmark scene (B = 4096 worlds, c_max = 8, dt = 0.01,
    SimConfig(max_iter=15, solver_eps=1e-6), float32, 20 steps) through
@@ -43,7 +45,20 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    refine 0, its capped one-step gradient against plain, the B = 2 f64 JAX
    record ``tests/data/torch_refine_golden.json``, and the first step's
    median final merit at refine 0 and 1.
-7. The card's name and power limit, a JSON line listing every kernel
+7. Path (c), the library API on bench.py::bench_lcp_solves' LCPs (the
+   forward slice's first step, B = 4096 f32): ``lcp_solve`` with the
+   library default ``fric_pair=False`` forward through K3u and backward
+   through the unrotated factor's K1/K2 (counters reset just before),
+   held to the plain path per world on capped runs and by distribution on
+   full ones; the same LCPs rotated, against it at f64 on 256 worlds;
+   both timed in turns; ``LCPFunction`` on the dense KKT and
+   ``solve_eq_kkt``.  Then ``utils.observe.solver_stats`` on the forward
+   slice's scene (K3u) and the dense scene (the unrotated K = 384 through
+   K4) against plain, and the f64 JAX record
+   ``tests/data/torch_lcp_golden.json`` of ``lcp_solve(fric_pair=False)``
+   (regenerate with ``PYTHONPATH=. python
+   tests/test_torch_lcp_general.py``).
+8. The card's name and power limit, a JSON line listing every kernel
    (``ms``, ``plain_ms``, ``library_ms`` — one PyTorch call computing the
    same function where there is one, timed here only —, ``bound_ms`` and
    ``bound_by`` from the call's bytes and operations at the card's
@@ -129,21 +144,28 @@ def kkt_batch(rng, B, n):
     return K
 
 
-def engine_instance(rng, B, n, C, q, valid_frac=0.7):
-    """Engine-layout contact LCPs with the +-friction pair structure (the
-    generator of tests/test_fused_ipm.py, numpy only)."""
+def engine_instance(rng, B, n, C, q, valid_frac=0.7, pair=True, fd=2):
+    """Engine-layout contact LCPs (the generator of tests/test_fused_ipm.py,
+    numpy only): with ``pair`` the +-friction pair structure (fd = 2),
+    without it ``fd`` independent friction rows per contact."""
     qd = rng.uniform(0.5, 2.0, (B, n))
     p = rng.standard_normal((B, n))
     valid = (rng.random((B, C)) < valid_frac).astype(float)
     mu = rng.uniform(0.3, 1.0, (B, C)) * valid
     Jc = rng.standard_normal((B, C, n)) * valid[..., None]
-    Jf1 = rng.standard_normal((B, C, n)) * valid[..., None]
-    G = np.concatenate([-Jc, -Jf1, Jf1, np.zeros((B, C, n))], 1)
+    if pair:
+        fd = 2
+        Jf1 = rng.standard_normal((B, C, n)) * valid[..., None]
+        Jf = np.concatenate([Jf1, -Jf1], 1)
+    else:
+        Jf = rng.standard_normal((B, fd * C, n)) \
+            * np.tile(valid, (1, fd))[..., None]
+    G = np.concatenate([-Jc, -Jf, np.zeros((B, C, n))], 1)
     jcv = np.einsum("bcn,bn->bc", Jc, p)
     h = np.concatenate([np.where(valid > 0, 0.3 * jcv, 1.0),
-                        np.where(np.tile(valid, (1, 2)) > 0, 0.0, 1.0),
+                        np.where(np.tile(valid, (1, fd)) > 0, 0.0, 1.0),
                         np.where(valid > 0, 0.0, 1.0)], -1)
-    rmask = np.concatenate([valid, np.tile(valid, (1, 2)), valid], -1)
+    rmask = np.concatenate([valid, np.tile(valid, (1, fd)), valid], -1)
     A = rng.standard_normal((B, q, n))
     b = np.einsum("bqn,bn->bq", A, rng.standard_normal((B, n))) * 0.1
     return qd, p, G, h, A, b, mu, valid, rmask
@@ -308,25 +330,85 @@ def phase_gj(torch, dev):
     return out
 
 
-def phase_fused(torch, dev):
+def ulp_tensor(torch, x):
+    """x moved by about one ulp of float32 (torch generator, seed 1)."""
+    return x * (1 + 2.0 ** -23 * torch.randn(
+        x.shape, generator=torch.Generator(x.device).manual_seed(1),
+        device=x.device, dtype=x.dtype))
+
+
+def hold_full_f32(torch, tag, got, ref, pert):
+    """A float32 full solve (z, s, lam, nu, mu, resid, iters) against its
+    plain version ``ref``: f32 stops on a merit near its f32 floor, where
+    one ulp of input moves the stopping iteration and z, so the plain
+    version at p + 1 ulp (``pert``) is the yardstick for the shares."""
+    same = got[6] == ref[6]
+    ez = world_rel(got[0], ref[0])[same]
+    el = world_rel(got[2], ref[2])[same]
+    frac = float(same.double().mean())
+    frac_ulp = float((pert[6] == ref[6]).double().mean())
+    check(frac >= 0.9 * frac_ulp
+          and share(ez, 1e-4) >= 0.999
+          and float(ez.median()) <= 1e-6
+          and float(el.median()) <= 1e-4,
+          f"{tag}: iterations equal on {frac:.2%} of "
+          f"worlds (plain at p+1ulp: {frac_ulp:.2%}); on those "
+          f"z within 1e-4 on {share(ez, 1e-4):.2%}, median z "
+          f"{float(ez.median()):.2e} (<= 1e-6), lam "
+          f"{float(el.median()):.2e} (<= 1e-4)")
+    merit_ref = ref[4] + ref[5]
+    worse = float((got[4] + got[5] - merit_ref).max())
+    worse_ulp = float((pert[4] + pert[5] - merit_ref).max())
+
+    def agree(x, y):
+        e = (x[0] - y[0]).abs().amax(-1) / \
+            y[0].abs().amax(-1).clamp_min(1.0)
+        return share(e, 1e-3)
+    frac, frac_ulp = agree(got, ref), agree(pert, ref)
+    check(worse <= 1e-3 and frac >= frac_ulp - 0.01,
+          f"{tag}: merit at most {worse:.2e} above plain "
+          f"(plain at p+1ulp: {worse_ulp:.2e}; bound 1e-3), z "
+          f"within 1e-3 of plain on {frac:.2%} of worlds "
+          f"(plain at p+1ulp: {frac_ulp:.2%})")
+
+
+# (C, q, fd, dtypes) of the fused-kernel phase: the rotated variant (K3)
+# at K = 2C + q, the unrotated one (K3u) at K = (1 + fd)C + q
+FUSED_SHAPES = {
+    True: [(Cc, q, 2, ("float32", "float64"))
+           for Cc, q in ((8, 0), (8, 3), (16, 0), (16, 3), (24, 0))],
+    False: [(Cc, q, 2, ("float32", "float64"))
+            for Cc, q in ((8, 0), (8, 3), (12, 0), (16, 0))]
+    + [(16, 0, 1, ("float64",))]}
+
+
+def phase_fused(torch, dev, rot=True):
+    """The fused whole-IPM kernel against its plain loop at B = 4096, n = 24:
+    K3 (``rot``, instances with the +- friction pair) or K3u (instances
+    without it), per world on runs capped at CAP_ITERS iterations, and the
+    full runs; times at (C, q) = (C, 0) float32."""
     from lcp_physics_tpu_torch.lcp.cone import ConeF
     from lcp_physics_tpu_torch.lcp.pdipm import _dtype_consts, initial_point
     from lcp_physics_tpu_torch.ops import ipm
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(0 if rot else 1)
     n = 3 * N
+    name = "fused_ipm" if rot else "fused_ipm_unrot"
     out = {}
-    for Cc, q in ((8, 0), (8, 3), (16, 0), (16, 3), (24, 0)):
-        inst = engine_instance(rng, B, n, Cc, q)
-        for dt in (torch.float32, torch.float64):
+    for Cc, q, fd, dts in FUSED_SHAPES[rot]:
+        inst = engine_instance(rng, B, n, Cc, q, pair=rot, fd=fd)
+        for dt in (getattr(torch, d) for d in dts):
             qd, p, G, h, A, b, mu, valid, rmask = (
                 torch.tensor(x, dtype=dt, device=dev) for x in inst)
             consts = _dtype_consts(dt)
-            ops = ipm.rot_operands(qd, G, A, Cc)
-            x0 = initial_point(ops, p, h, b, ConeF(mu, valid), rmask, consts)
+            ops = (ipm.rot_operands if rot else ipm.unrot_operands)(
+                qd, G, A, Cc)
+            x0 = initial_point(ops, p, h, b, ConeF(mu, valid, fd), rmask,
+                               consts, fric_pair=rot)
             f64 = dt == torch.float64
             args = (ops, p, h, b, mu, valid, rmask, *x0)
-            tag = f"C={Cc} q={q} K={2 * Cc + q} {str(dt)[6:]}"
-            base = dict(C=Cc, fd=2, consts=consts, fric_pair=True)
+            K = 2 * Cc + q if rot else (1 + fd) * Cc + q
+            tag = (f"{name} C={Cc} q={q} fd={fd} K={K} {str(dt)[6:]}")
+            base = dict(C=Cc, fd=fd, consts=consts, fric_pair=rot)
 
             # Capped: no stopping rule fires, every world runs CAP_ITERS
             # iterations of the loop, still well conditioned -- per world.
@@ -337,7 +419,7 @@ def phase_fused(torch, dev):
             lim = 1e-8 if f64 else 1e-3
             check(float(torch.maximum(ez, el).max()) <= lim
                   and float(ez.median()) <= lim / 100,
-                  f"fused {tag}, {CAP_ITERS} iterations on every world: z "
+                  f"{tag}, {CAP_ITERS} iterations on every world: z "
                   f"{float(ez.max()):.2e} (median {float(ez.median()):.2e}),"
                   f" lam {float(el.max()):.2e} vs plain (<= {lim:g}, "
                   f"median <= {lim / 100:g})")
@@ -348,69 +430,41 @@ def phase_fused(torch, dev):
                       not_improved_lim=3 if f64 else 1)
             got = ipm.fused_ipm(*args, **kw)
             ref = ipm.fused_ipm_ref(*args, **kw)
-            same = got[6] == ref[6]
-            ez = world_rel(got[0], ref[0])[same]
-            el = world_rel(got[2], ref[2])[same]
-            frac = float(same.double().mean())
             if f64:
                 # Same algorithm: worlds that took the same iteration path
                 # agree to 1e-8; a world whose merit lands on the tol
                 # boundary may stop one iteration apart (<= 0.1%).
+                same = got[6] == ref[6]
+                ez = world_rel(got[0], ref[0])[same]
+                el = world_rel(got[2], ref[2])[same]
+                frac = float(same.double().mean())
                 check(float(ez.max()) <= 1e-8 and float(el.max()) <= 1e-8
                       and frac >= 0.999,
-                      f"fused {tag}: iterations equal on {frac:.3%} of "
+                      f"{tag}: iterations equal on {frac:.3%} of "
                       f"worlds; on those z {float(ez.max()):.2e}, lam "
                       f"{float(el.max()):.2e} vs plain")
             else:
-                # f32 stops on a merit near its f32 floor, where one ulp of
-                # input moves the stopping iteration and z: the plain
-                # version at p + 1 ulp is the yardstick for the shares.
-                p_ulp = p * (1 + 2.0 ** -23 * torch.randn(
-                    p.shape, generator=torch.Generator(dev).manual_seed(1),
-                    device=dev, dtype=dt))
-                pert = ipm.fused_ipm_ref(ops, p_ulp, *args[2:], **kw)
-                frac_ulp = float((pert[6] == ref[6]).double().mean())
-                check(frac >= 0.9 * frac_ulp
-                      and share(ez, 1e-4) >= 0.999
-                      and float(ez.median()) <= 1e-6
-                      and float(el.median()) <= 1e-4,
-                      f"fused {tag}: iterations equal on {frac:.2%} of "
-                      f"worlds (plain at p+1ulp: {frac_ulp:.2%}); on those "
-                      f"z within 1e-4 on {share(ez, 1e-4):.2%}, median z "
-                      f"{float(ez.median()):.2e} (<= 1e-6), lam "
-                      f"{float(el.median()):.2e} (<= 1e-4)")
-                merit_ref = ref[4] + ref[5]
-                worse = float((got[4] + got[5] - merit_ref).max())
-                worse_ulp = float((pert[4] + pert[5] - merit_ref).max())
-
-                def agree(x, y):
-                    e = (x[0] - y[0]).abs().amax(-1) / \
-                        y[0].abs().amax(-1).clamp_min(1.0)
-                    return share(e, 1e-3)
-                frac, frac_ulp = agree(got, ref), agree(pert, ref)
-                check(worse <= 1e-3 and frac >= frac_ulp - 0.01,
-                      f"fused {tag}: merit at most {worse:.2e} above plain "
-                      f"(plain at p+1ulp: {worse_ulp:.2e}; bound 1e-3), z "
-                      f"within 1e-3 of plain on {frac:.2%} of worlds "
-                      f"(plain at p+1ulp: {frac_ulp:.2%})")
+                pert = ipm.fused_ipm_ref(ops, ulp_tensor(torch, p),
+                                         *args[2:], **kw)
+                hold_full_f32(torch, tag, got, ref, pert)
                 if Cc == C and q == 0:       # the slice's shape
-                    out["fused_ipm"] = dict(
+                    out[name] = dict(
                         max_abs_err=float((got[0] - ref[0]).abs().max()),
                         ms=cuda_ms(torch, lambda: ipm.fused_ipm(*args, **kw)),
                         plain_ms=cuda_ms(
                             torch, lambda: ipm.fused_ipm_ref(*args, **kw)),
                         library_ms=None,
-                        **fused_bound(ops, args, got, n, Cc, q))
+                        **fused_bound(ops, args, got, n, K))
     return out
 
 
-def fused_bound(ops, args, got, n, Cc, q):
-    """K3's bound for this run: its inputs and outputs once, and per world
-    the iterations it ran (iters; a world stops before the factor of its
-    last one): a K x K Gauss-Jordan inverse (2K^3), two solves of three
-    K x K matvecs (12K^2) and two Ghat products (4Kn) each, and two more
-    Ghat products per merit evaluation (iters + 3 of them)."""
-    K = 2 * Cc + q
+def fused_bound(ops, args, got, n, K):
+    """K3's (or K3u's) bound for this run, K the Schur system's rows: its
+    inputs and outputs once, and per world the iterations it ran (iters; a
+    world stops before the factor of its last one): a K x K Gauss-Jordan
+    inverse (2K^3), two solves of three K x K matvecs (12K^2) and two Ghat
+    products (4Kn) each, and two more Ghat products per merit evaluation
+    (iters + 3 of them)."""
     it = got[6].double()
     flops = float((it * (2 * K ** 3 + 12 * K * K + 4 * K * n)
                    + (it + 3) * 4 * K * n).sum())
@@ -1038,6 +1092,267 @@ def phase_refine(torch, dev, smi):
     return launches
 
 
+LCP_KW = dict(max_iter=15, tol=1e-6, gamma_rows=C, not_improved_lim=1)
+LCP_B64 = 256   # path (c)'s float64 checks: the first worlds of the batch
+
+
+def slice_lcp(torch, dev, dt, Bn=None):
+    """The LCPs of bench.py::bench_lcp_solves: the first step of the
+    forward slice's scene (the first ``Bn`` worlds of slice_start(B)),
+    assembled by make_assemble: lcp_solve's keyword arguments Q, p, G, h,
+    A, b, F and row_mask."""
+    from lcp_physics_tpu_torch.core import (WorldState, default_params,
+                                            make_assemble, make_scene_static)
+    from lcp_physics_tpu_torch.utils import SimConfig
+    Bn = Bn or B
+    p0, v0 = (x[:Bn] for x in slice_start(B))
+    static = make_scene_static([1] * N, c_max=C)
+    params = default_params(static, verts=np.zeros((N, 1, 2)),
+                            radius=np.full(N, 1.0), gravity=(0.0, 10.0),
+                            restitution=0.4, dtype=dt, device=dev)
+    state = WorldState(torch.tensor(p0, dtype=dt, device=dev),
+                       torch.tensor(v0, dtype=dt, device=dev),
+                       torch.zeros(Bn, dtype=dt, device=dev))
+    assemble = make_assemble(static, SimConfig(max_iter=15, solver_eps=1e-6))
+    with torch.no_grad():
+        blocks, _ = assemble(params, state,
+                             torch.full((Bn,), DT, dtype=dt, device=dev))
+    return blocks
+
+
+def lcp_fwd_bwd(torch, blocks, backward=True, **kw):
+    """z of lcp_solve on ``blocks`` and, with ``backward``, the gradients of
+    sum(z^2) with respect to h and F.mu."""
+    from lcp_physics_tpu_torch.lcp import ConeF, lcp_solve
+    F = blocks["F"]
+    h = blocks["h"].clone().requires_grad_(backward)
+    mu = F.mu.clone().requires_grad_(backward)
+    args = dict(blocks, h=h, F=ConeF(mu, F.valid, F.fd))
+    if not backward:
+        with torch.no_grad():
+            return lcp_solve(**args, **kw), None, None
+    z = lcp_solve(**args, **kw)
+    gh, gmu = torch.autograd.grad((z ** 2).sum(), (h, mu))
+    return z.detach(), gh, gmu
+
+
+def phase_lcp(torch, dev, smi):
+    """Path (c), the library API on the benchmark scene's LCPs (B = 4096,
+    f32, LCP_KW): (i) lcp_solve with the library default fric_pair=False,
+    forward through K3u and the backward of sum(z^2) through the unrotated
+    factor's K1/K2, held to the plain path; (ii) the same LCPs with
+    fric_pair=True, against (i) at f64; (iii) (i) and (ii) timed in turns;
+    (iv) LCPFunction with a dense Q and F (the 56-row dense KKT); (v)
+    solve_eq_kkt.  Returns the launch counts of (i)."""
+    from lcp_physics_tpu_torch.lcp import (ConeF, LCPFunction,
+                                           lcp_solve_full, solve_eq_kkt)
+    f32, f64 = torch.float32, torch.float64
+    blocks = slice_lcp(torch, dev, f32)
+    m = blocks["G"].shape[1]
+    active = float(blocks["F"].valid.sum(-1).mean())
+    print(f"  path (c): B={B} n={blocks['p'].shape[1]} m={m} "
+          f"q={blocks['A'].shape[1]}, {active:.2f} active contacts per "
+          "world", flush=True)
+    run = lambda fp, bw=True, **kw: lcp_fwd_bwd(
+        torch, blocks, bw, fric_pair=fp, **dict(LCP_KW, **kw))
+    run(False)
+    run(True)                                       # warm-ups, not counted
+    reset_counts()
+    z, gh, gmu = run(False)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    print(f"path (c) (i) launches, fwd+bwd: {launches}", flush=True)
+    check(launches["fused_ipm_unrot"] > 0 and launches["fused_ipm"] == 0
+          and all(launches[k] > 0 for k in ("lu", "solve", "solve_t")),
+          "path (c) (i): lcp_solve(fric_pair=False) launched K3u "
+          "(fused_ipm_unrot, not the rotated K3) forward and K1/K2's "
+          "trans=1 solve backward")
+    check(all(bool(torch.isfinite(x).all()) for x in (z, gh, gmu)),
+          "path (c) (i): z and its gradients are finite")
+
+    # capped: every world held at CAP_ITERS iterations, per world
+    cap = dict(max_iter=CAP_ITERS, tol=0.0, not_improved_lim=0)
+    zc, ghc, gmc = run(False, **cap)
+    got = lcp_solve_full(**blocks, fric_pair=False, **LCP_KW)
+    with plain_kernels("path (c)'s comparison runs"):
+        zc_r, ghc_r, gmc_r = run(False, **cap)
+        ref = lcp_solve_full(**blocks, fric_pair=False, **LCP_KW)
+        pert = lcp_solve_full(**dict(blocks, p=ulp_tensor(torch, blocks["p"])),
+                              fric_pair=False, **LCP_KW)
+    errs = [world_rel(a, r) for a, r in ((zc, zc_r), (ghc, ghc_r),
+                                         (gmc, gmc_r))]
+    check(all(float(e.max()) <= 1e-3 and float(e.median()) <= 1e-5
+              for e in errs),
+          f"path (c) (i), {CAP_ITERS} iterations on every world, kernel vs "
+          "plain: z, d/dh, d/dmu per world max "
+          + ", ".join(f"{float(e.max()):.2e}" for e in errs) + " (<= 1e-3),"
+          " median " + ", ".join(f"{float(e.median()):.2e}" for e in errs)
+          + " (<= 1e-5)")
+    hold_full_f32(torch, "path (c) (i) lcp_solve_full(fric_pair=False)",
+                  got, ref, pert)
+
+    # (ii) the rotated solve of the same LCPs, f64: the same solution
+    b64 = slice_lcp(torch, dev, f64, LCP_B64)
+    kw64 = dict(max_iter=25, tol=1e-11, gamma_rows=C, not_improved_lim=3)
+    s_u = lcp_solve_full(**b64, fric_pair=False, **kw64)
+    s_r = lcp_solve_full(**b64, fric_pair=True, **kw64)
+    ez = float((s_u.z - s_r.z).abs().max())
+    # lam is unique only where the contact rows are independent; elsewhere
+    # the two splits of one impulse G^T lam are both right
+    el = (s_u.lam - s_r.lam).abs().amax(-1)
+    ei = torch.einsum("bmn,bm->bn", b64["G"], s_u.lam - s_r.lam).abs() \
+        .amax(-1)
+    check(ez <= 1e-6 and share(el, 1e-4) >= 0.95
+          and bool(((el <= 1e-4) | (ei <= 1e-6)).all()),
+          f"path (c) (ii), f64, {LCP_B64} worlds: fric_pair=False vs True "
+          f"z {ez:.2e} (<= 1e-6); lam within 1e-4 on {share(el, 1e-4):.2%}"
+          f" of worlds (>= 95%), on the others the impulse G^T lam within "
+          f"{float(torch.where(el > 1e-4, ei, 0.0).max()):.2e} (<= 1e-6); "
+          f"merit max {float((s_u.mu + s_u.resid).max()):.2e}, "
+          f"{float((s_r.mu + s_r.resid).max()):.2e}")
+
+    # (iii) fric_pair False and True in turns, forward and fwd+bwd
+    times = {}
+    for fp in (False, True, True, False):
+        for bw in (False, True):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(fp, bw)
+            torch.cuda.synchronize()
+            times.setdefault((fp, bw), []).append(
+                1e3 * (time.perf_counter() - t0))
+    for (fp, bw), ts in sorted(times.items()):
+        print(f"path (c) (iii) lcp_solve(fric_pair={fp}) "
+              f"{'fwd+bwd' if bw else 'forward'}: "
+              + ", ".join(f"{x:.3f}" for x in ts)
+              + f" ms per batch (B={B}, f32, in turns False, True, True, "
+              f"False; {smi})", flush=True)
+    for fp in (False, True):
+        events, dev_ms = device_events(torch, lambda: run(fp, False), 1)
+        shown = ("not measured" if events is None else
+                 f"{events:.0f} device events, {dev_ms:.3f} ms of device "
+                 "time")
+        print(f"  path (c) (iii) lcp_solve(fric_pair={fp}) forward: {shown}"
+              f" per batch ({smi})", flush=True)
+
+    # (iv) LCPFunction: dense Q and F, no gamma elimination and no row
+    # mask (the dense KKT), against (i) at f64, both to the f64 floor
+    reset_counts()
+    z_f = LCPFunction(eps=kw64["tol"], maxIter=kw64["max_iter"])(
+        torch.diag_embed(b64["Q"]), b64["p"], b64["G"], b64["h"], b64["A"],
+        b64["b"], b64["F"].dense())
+    dense = launch_counts()
+    e = float((z_f - s_u.z).abs().max())
+    check(dense["lu"] > 0 and dense["solve"] > 0 and e <= 1e-6,
+          f"path (c) (iv) LCPFunction, dense Q and F ({b64['p'].shape[1]} + "
+          f"{m} rows: K1 {dense['lu']}, K2 {dense['solve']} launches), f64 "
+          f"{LCP_B64} worlds: z vs (i) {e:.2e} (<= 1e-6)")
+
+    # (v) the equality-only KKT on one batch of random systems
+    rng = np.random.default_rng(5)
+    n, q = blocks["p"].shape[1], 3
+    t32 = lambda x: torch.tensor(x, dtype=f32, device=dev)
+    Q = torch.diag_embed(t32(rng.uniform(0.5, 2.0, (B, n))))
+    p, A, b = (t32(rng.standard_normal(s)) for s in ((B, n), (B, q, n),
+                                                      (B, q)))
+    reset_counts()
+    zq, nu = solve_eq_kkt(Q, p, A, b)
+    eqn = launch_counts()
+    r1 = (torch.einsum("bij,bj->bi", Q, zq) + p
+          + torch.einsum("bqn,bq->bn", A, nu)).abs().max()
+    r2 = (torch.einsum("bqn,bn->bq", A, zq) - b).abs().max()
+    check(eqn["lu"] > 0 and max(float(r1), float(r2)) <= 1e-4,
+          f"path (c) (v) solve_eq_kkt, B={B}, n={n}, q={q}, f32: residuals "
+          f"{float(r1):.2e}, {float(r2):.2e} (<= 1e-4)")
+    return launches
+
+
+def phase_stats(torch, dev, smi):
+    """utils.observe.solver_stats at full width: the forward slice's scene
+    (B = 4096 f32, through K3u) and the dense 64-circle scene (B = 256
+    f32, c_max = 128: the unrotated K = 384 over three panels, through
+    K4), each against its plain version."""
+    from lcp_physics_tpu_torch.core import make_scene_static
+    from lcp_physics_tpu_torch.utils import SimConfig
+    from lcp_physics_tpu_torch.utils.observe import solver_stats
+    p0, v0 = slice_start(B)
+    gp0, gv0 = grid_start(TRAIN_B, TRAIN_SIDE)
+    scenes = [
+        ("slice", "fused_ipm_unrot", make_scene_static([1] * N, c_max=C),
+         SimConfig(max_iter=15, solver_eps=1e-6),
+         lambda p: slice_scene(torch, dev, torch.float32, p, v0)[1:], p0),
+        ("dense", "gj_inv_blocked",
+         make_scene_static([1] * TRAIN_SIDE ** 2, c_max=TRAIN_C),
+         SimConfig(max_iter=12, solver_eps=1e-5),
+         lambda p: train_scene(torch, dev, torch.float32, p, gv0,
+                               TRAIN_C)[1:], gp0)]
+    for what, kernel, static, cfg, scene, p_np in scenes:
+        params, state = scene(p_np)
+        solver_stats(static, cfg, params, state, DT)      # warm-up
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sol = solver_stats(static, cfg, params, state, DT)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launches = launch_counts()
+        with plain_kernels(f"solver_stats {what}'s comparison runs"):
+            ref = solver_stats(static, cfg, params, state, DT)
+            pert = solver_stats(static, cfg, *scene(ulp(p_np)), DT)
+        frac = float((sol.iters == ref.iters).double().mean())
+        frac_ulp = float((pert.iters == ref.iters).double().mean())
+        merit, merit_r = (float((x.mu + x.resid).median()) for x in (sol, ref))
+        check(launches[kernel] > 0 and (frac >= 0.9 or frac >= frac_ulp - 0.05)
+              and merit <= 2 * merit_r and bool(torch.isfinite(sol.z).all()),
+              f"solver_stats, {what} scene (B={sol.z.shape[0]}, f32): "
+              f"{kernel} launched {launches[kernel]} times; iterations equal "
+              f"to plain on {frac:.2%} of worlds (>= 90%, or plain at "
+              f"p0+1ulp's {frac_ulp:.2%} less 5 points); median merit "
+              f"{merit:.3e} vs plain {merit_r:.3e} (<= 2x); {1e3 * sec:.1f} ms"
+              f"; mean iterations {float(sol.iters.double().mean()):.2f}")
+
+
+def hold_lcp_record(torch, dev):
+    """The f64 JAX record tests/data/torch_lcp_golden.json of
+    lcp_solve(fric_pair=False) through the kernels: its engine LCPs
+    through K3u, its dense QP through K1/K2, z, lam and the gradients of
+    sum(z^2) within 1e-8, the same iterations."""
+    from lcp_physics_tpu_torch.lcp import ConeF, lcp_solve, lcp_solve_full
+    with open(os.path.join(ROOT, "tests", "data",
+                           "torch_lcp_golden.json")) as f:
+        rec = json.load(f)
+    reset_counts()
+    for part in ("engine", "qp"):
+        r = rec[part]
+        g = lambda k: torch.tensor(r[k], dtype=torch.float64, device=dev)
+        leaves = [g("p").requires_grad_(True), g("h").requires_grad_(True)]
+        kw = dict(rec["kw"])
+        if part == "engine":
+            leaves.append(g("mu").requires_grad_(True))
+            args = (g("qd"), leaves[0], g("G"), leaves[1], None, None,
+                    ConeF(leaves[2], g("valid"), 2))
+            kw.update(q_is_diag=True, gamma_rows=8, row_mask=g("rmask"))
+        else:
+            args = (g("Q"), leaves[0], g("G"), leaves[1], g("A"), g("b"),
+                    g("F"))
+        sol = lcp_solve_full(*args, **kw)
+        z = lcp_solve(*args, **kw)
+        grads = torch.autograd.grad((z ** 2).sum(), leaves)
+        got = dict(z=sol.z, lam=sol.lam,
+                   **dict(zip(("grad_p", "grad_h", "grad_mu"), grads)))
+        errs = {k: float((x.cpu() - torch.tensor(r[k], dtype=torch.float64))
+                         .abs().max()) for k, x in got.items()}
+        same = sol.iters.cpu().tolist() == r["iters"]
+        check(same and max(errs.values()) <= 1e-8,
+              f"f64 JAX record of lcp_solve(fric_pair=False), {part}: "
+              + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
+              + f" (<= 1e-8); iterations {'equal' if same else 'differ'}")
+    launches = launch_counts()
+    check(all(launches[k] > 0 for k in ("fused_ipm_unrot", "lu", "solve",
+                                        "solve_t")),
+          f"the record's solves launched K3u and K1/K2: {launches}")
+
+
 def phase_line(torch, dev, smi):
     """The backward of the touching 8-circle line (fused forward, lane LU
     with the trans=1 substitution backward).  Returns its launch counts."""
@@ -1090,6 +1405,7 @@ def main():
     print("== kernels vs plain versions", flush=True)
     stats = phase_lu(torch, dev)
     stats.update(phase_fused(torch, dev))
+    stats.update(phase_fused(torch, dev, rot=False))
     stats.update(phase_gj(torch, dev))
     stats.update(phase_ipm_iter(torch, dev))
     for k, s in stats.items():
@@ -1109,6 +1425,13 @@ def main():
     print("== path (a): the dense training step at solver_refine=1",
           flush=True)
     phase_refine(torch, dev, smi)
+    print("== path (c): the library API, lcp_solve(fric_pair=False), on the "
+          "benchmark scene's LCPs", flush=True)
+    lcp_launches = phase_lcp(torch, dev, smi)
+    print("== solver_stats at full width", flush=True)
+    phase_stats(torch, dev, smi)
+    print("== the f64 JAX record of lcp_solve(fric_pair=False)", flush=True)
+    hold_lcp_record(torch, dev)
 
     src = "lcp_physics_tpu_torch/csrc/"
     rows = [("lu", src + "lu.cu", "lcp_physics_tpu/ops/linalg.py:113",
@@ -1117,6 +1440,8 @@ def main():
              launches),
             ("fused_ipm", src + "fused_ipm.cu",
              "lcp_physics_tpu/ops/ipm.py:108", launches),
+            ("fused_ipm_unrot", src + "fused_ipm.cu",
+             "lcp_physics_tpu/ops/ipm.py:108", lcp_launches),
             ("gj_inv_blocked", src + "gj_inv.cu",
              "lcp_physics_tpu/ops/linalg.py:238", train32),
             ("gj_inv", src + "gj_inv.cu",

@@ -7,11 +7,13 @@ module of the same path there and is held against it by the tests under
 (``csrc/``), built with ``nvcc`` at first use; on CPU tensors every kernel
 wrapper runs its plain torch version instead.
 
-- ``utils``    — ``SimConfig``, ``Defaults`` and 2D math helpers.
+- ``utils``    — ``SimConfig``, ``Defaults``, 2D math helpers and
+  ``utils.observe`` (solver statistics, guards, timer, profiler trace).
 - ``core``     — state, circle narrowphase, Jacobians, the batched step and
   rollout.
-- ``lcp``      — the mixed-LCP solver for the engine's contact layout.
-- ``ops``      — the LU, substitution and fused-IPM kernels.
+- ``lcp``      — the batched differentiable mixed-LCP/QP solver
+  (``lcp_solve``, ``lcp_solve_full``, ``LCPFunction``, ``solve_eq_kkt``).
+- ``ops``      — the LU, substitution, Gauss-Jordan and fused-IPM kernels.
 - ``parallel`` — world-batch helpers.
 """
 

@@ -225,9 +225,6 @@ def make_step_batched(static: SceneStatic, config: SimConfig = SimConfig(),
         raise NotImplementedError(
             "ROADMAP A6: post_stabilization and penetration_backtrack are "
             "not ported yet")
-    if config.lcp_backend == "xla":
-        raise NotImplementedError(
-            "ROADMAP A3: the unfused 'xla' solver backend is not ported yet")
     assemble = make_assemble(static, config)
     N = static.n_bodies
     C = static.c_max
@@ -235,7 +232,8 @@ def make_step_batched(static: SceneStatic, config: SimConfig = SimConfig(),
     counts = static.counts_np()
     fast_free = config.contact_free_fast_path
     dyn_kw = dict(max_iter=config.max_iter, tol=config.solver_eps,
-                  q_is_diag=True, refine=config.solver_refine,
+                  backend=config.lcp_backend, q_is_diag=True,
+                  refine=config.solver_refine,
                   not_improved_lim=config.solver_stall_lim,
                   gondzio=config.solver_gondzio,
                   stall_rtol=config.solver_stall_rtol, gamma_rows=C,

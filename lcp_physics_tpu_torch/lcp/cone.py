@@ -26,6 +26,32 @@ class ConeF:
     def C(self):
         return self.mu.shape[-1]
 
+    @property
+    def m(self):
+        return self.C * (2 + self.fd)
+
+    @property
+    def dtype(self):
+        return self.mu.dtype
+
+    @property
+    def shape(self):
+        """The (..., m, m) shape of the matrix it stands for."""
+        return tuple(self.mu.shape[:-1]) + (self.m, self.m)
+
+    def dense(self):
+        """The (..., m, m) matrix, for the solver's generic dense paths."""
+        C, fd, m = self.C, self.fd, self.m
+        F = self.mu.new_zeros(self.shape)
+        eye = torch.eye(C, dtype=self.mu.dtype, device=self.mu.device)
+        vf = torch.cat([self.valid] * fd, dim=-1)
+        Ev = (torch.cat([eye] * fd, dim=0) * vf[..., None]
+              * self.valid[..., None, :])                   # (..., fd*C, C)
+        F[..., C:C + fd * C, C + fd * C:m] = -Ev
+        F[..., C + fd * C:, :C] = -self.mu[..., None] * eye
+        F[..., C + fd * C:, C:C + fd * C] = Ev.transpose(-1, -2)
+        return F
+
     def matvec(self, lam):
         """F @ lam for lam (..., m)."""
         C, fd = self.C, self.fd

@@ -1,5 +1,5 @@
 r"""Mehrotra predictor-corrector primal-dual interior-point solver for the
-mixed LCP of contact dynamics — the engine layout of it.
+mixed LCP / QP that underlies contact dynamics.
 
 Counterpart of ``lcp_physics_tpu/lcp/pdipm.py``.  Problem (batched):
 
@@ -7,26 +7,35 @@ Counterpart of ``lcp_physics_tpu/lcp/pdipm.py``.  Problem (batched):
     subject to   G z + F lam + s = h,   s >= 0,  lam >= 0,  s ⊥ lam
                  A z = b
 
-Ported: the engine layout (diagonal Q, ``ConeF`` friction coupling, the
-friction-cone slack rows eliminated, the friction-pair rotation).  The
-rotated Schur system (K2 = 2C + q rows) is formed whole and factored by
-the lane LU (``ops.linalg``, K2 <= 88) or by the blocked LU over
-128-panels (K2 > 88), and solved both ways (trans=0 for the iterations,
-trans=1 for the implicit backward).  ``refine`` > 0 adds iterative
-refinement to every solve: on blocked systems of at most two panels the
-factor becomes the explicit inverse and each solve one matvec plus
-``INV_REFINE + refine`` steps against the structured system; elsewhere
-``refine`` steps against the assembled one.  After the initial Newton
-solve the iterations run in the fused whole-IPM kernel
-(``ops.ipm.fused_ipm``) when K2 <= 48 and refine is 0; with ``FUSE_ITER``
-set, at refine 0 and 88 < K2 <= 256, in the fused per-iteration kernel
-(``ops.ipm_iter.fused_iter_ipm``); otherwise in the packed unfused loop
-of the JAX package.  Both host loops read one flag per iteration back to
-stop once every world is done (``HOST_READS`` counts those reads).
+The KKT factor (``make_kkt_factor``) takes the JAX package's four forms:
 
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item:
-``gondzio``, dense Q, a dense F, ``m == 0`` and the systems without the
-friction-pair structure (A3, B2b).
+* dense (Q dense): the reduced KKT matrix K(d) assembled and factored;
+* Schur (Q diagonal, ``gamma_rows`` 0): the (m + q)-row complement
+  S = B(d) - Ghat Q^-1 Ghat^T with a dense F (a ``ConeF`` made dense);
+* gamma elimination (Q diagonal, the trailing ``gamma_rows`` of G zero):
+  the gamma rows eliminated in closed form, leaving K = m - gamma + q rows,
+  with the ``ConeF`` bands (``ops.ipm.unrot_schur``) or a dense F;
+* the friction-pair rotation (``fric_pair=True`` on the engine layout):
+  also the u rows eliminated, K2 = 2C + q rows (``_rot_factor_factory``).
+
+Each system is formed whole and factored by the lane LU (``ops.linalg``,
+K <= 88) or the blocked LU over 128-panels (K > 88); ``backend='xla'``
+takes the row-pivoted library LU instead, and only when the caller names
+it.  ``refine`` > 0 adds iterative refinement to every solve: on rotated
+blocked systems of at most two panels the factor becomes the explicit
+inverse and each solve one matvec plus ``INV_REFINE + refine`` steps
+against the structured system; elsewhere ``refine`` steps against the
+assembled one.  After the initial Newton solve the iterations run in the
+fused whole-IPM kernel (``ops.ipm.fused_ipm``, rotated or unrotated) on
+the engine layout when K <= 48, refine and gondzio are 0 and the caller is
+not verbose; with ``FUSE_ITER`` set, at refine 0 and rotated 88 < K2 <=
+256, in the fused per-iteration kernel (``ops.ipm_iter.fused_iter_ipm``);
+otherwise in the packed unfused loop of the JAX package, with its Gondzio
+correctors and its per-iteration ``verbose`` line.  Both host loops read
+one flag per iteration back to stop once every world is done
+(``HOST_READS["ipm_loop"]`` counts those reads; ``verbose`` adds one more
+read per iteration, counted as ``HOST_READS["verbose"]``).  ``m == 0`` is
+the equality-only KKT solve ``solve_eq_kkt``.
 """
 from __future__ import annotations
 
@@ -38,7 +47,8 @@ import torch
 from lcp_physics_tpu_torch.lcp.cone import ConeF
 from lcp_physics_tpu_torch.ops import ipm, ipm_iter, linalg
 
-HOST_READS = {"ipm_loop": 0}
+HOST_READS = {"ipm_loop": 0, "verbose": 0}
+BACKENDS = ("auto", "pallas", "fused", "xla")
 _SQ2 = math.sqrt(2.0)
 
 # refine > 0 on a blocked system of at most linalg.INV_MAX_PANELS panels
@@ -68,8 +78,18 @@ def _dtype_consts(dtype):
     return dict(dinv_min=1e-6, dinv_max=1e6, reg=1e-7, tiny=1e-30)
 
 
-def _unported(item, what):
-    return NotImplementedError(f"ROADMAP {item}: {what} is not ported yet")
+def _check_backend(backend):
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got "
+                         f"{backend!r}")
+
+
+def _factor(K, backend, exact=False):
+    """The pivoted library LU for ``backend='xla'``, else the port's
+    pivotless factor (kernels on a CUDA tensor)."""
+    if backend == "xla":
+        return linalg.xla_factor(K)
+    return linalg.plu_factor(K, exact)
 
 
 def _solve_refined(fac, apply, rhs, trans, steps):
@@ -82,7 +102,14 @@ def _solve_refined(fac, apply, rhs, trans, steps):
     return x
 
 
-def _rot_factor_factory(operands, F, reg, factor_precision=None, refine=0):
+def _dense_apply(K):
+    """K (or K^T) times a vector, for the refinement residual."""
+    return lambda x, trans: torch.einsum(
+        "bij,bj->bi" if trans == 0 else "bji,bj->bi", K, x)
+
+
+def _rot_factor_factory(operands, F, reg, factor_precision=None, refine=0,
+                        backend="auto"):
     r"""KKT solve operator factory ``factor(d_inv) -> solve`` for the engine
     layout with the gamma rows and the friction-pair rotation eliminated
     (the JAX package's ``_rot_factor_factory``; the caller guarantees the
@@ -90,7 +117,8 @@ def _rot_factor_factory(operands, F, reg, factor_precision=None, refine=0):
     ``ops.ipm.rot_operands``; ``factor_precision='highest'`` (or
     ``'float32'``) sends float32 panel inverses of the blocked factor to
     the scalar Gauss-Jordan kernel.  ``refine`` adds refinement steps to
-    every solve (module docstring).
+    every solve (module docstring); ``backend='xla'`` factors with the
+    pivoted library LU.
 
     Kept rows [c (C), f1 (C), f2 (C), q] rotate to core rows
     [c (C), v (C), q], K2 = 2C + q, with u = (f1+f2)/sqrt2 and the gamma
@@ -114,7 +142,8 @@ def _rot_factor_factory(operands, F, reg, factor_precision=None, refine=0):
     K2 = P2.shape[-1]
     v_, mu_v = F.valid, F.mu
     exact = factor_precision in ("highest", "float32")
-    blocked = linalg.blocked_path(K2)
+    pivoted = backend == "xla"
+    blocked = not pivoted and linalg.blocked_path(K2)
     inv_mode = refine > 0 and blocked and linalg.inv_supported(K2)
 
     def make_apply_S2(dmain, bn):
@@ -135,11 +164,8 @@ def _rot_factor_factory(operands, F, reg, factor_precision=None, refine=0):
             fac = linalg.inv_factor_blocks(rs.S, exact)
             apply, steps = make_apply_S2(rs.dmain, rs.bn), INV_REFINE + refine
         else:
-            fac = linalg.plu_factor(rs.S, exact)
-            S = rs.S
-            apply = lambda x, trans: torch.einsum(
-                "bij,bj->bi" if trans == 0 else "bji,bj->bi", S, x)
-            steps = refine
+            fac = _factor(rs.S, backend, exact)
+            apply, steps = _dense_apply(rs.S), refine
         Dginv, cn, delta, g_u = rs.Dginv, rs.cn, rs.delta, rs.g_u
 
         def reduced(rhs, trans=0, r1_zero=False):
@@ -185,8 +211,8 @@ def _rot_factor_factory(operands, F, reg, factor_precision=None, refine=0):
             # Ghat2^T, exact transposes
             return qinv * (r1 - torch.einsum("bkn,bk->bn", Ghat2, wk))
 
-        def solve(rhs, trans=0):
-            w_full, wk = reduced(rhs, trans)
+        def solve(rhs, trans=0, r1_zero=False):
+            w_full, wk = reduced(rhs, trans, r1_zero)
             return torch.cat([z_from(rhs[:, :n], wk), w_full], -1)
 
         solve.reduced = reduced
@@ -206,6 +232,8 @@ def _rot_factor_factory(operands, F, reg, factor_precision=None, refine=0):
         return torch.einsum("bkn,bk->bn", Ghat2, u)
 
     factor_rot.residual_ops = (res_down, res_up)
+    factor_rot.has_reduced = True
+    factor_rot.operands = operands
     if blocked and linalg.inv_supported(K2):
         def iter_inv_raw(d_inv):
             rs = ipm.rot_schur(P2, d_inv, mu_v, v_, C_, reg)
@@ -213,6 +241,186 @@ def _rot_factor_factory(operands, F, reg, factor_precision=None, refine=0):
 
         factor_rot.iter_inv_raw = iter_inv_raw
     return factor_rot
+
+
+def _gamma_factor_factory(operands, F, m, g_, reg, factor_precision=None,
+                          refine=0, backend="auto"):
+    r"""KKT solve operator factory for a diagonal Q with the trailing
+    ``g_`` inequality rows eliminated in closed form (the JAX package's
+    ``factor_schur_gamma``): those rows have zero G rows and a zero F
+    diagonal block, so their Schur block is diagonal.  ``operands`` =
+    (P, Ghat, Q^-1) from ``ops.ipm.unrot_operands`` (Ghat = [G_kept; A],
+    K = m - g_ + q rows); F is a ``ConeF`` (the cone bands of
+    ``ops.ipm.unrot_schur``, never materialized) or a dense (B, m, m) F.
+    The factored system S is formed whole; ``refine`` adds refinement steps
+    against it.  Same ``solve`` / ``reduced`` / ``z_from`` /
+    ``residual_ops`` interface as :func:`_rot_factor_factory`."""
+    P, Ghat, qinv = operands
+    B, n = qinv.shape
+    K = P.shape[-1]
+    mg = m - g_
+    q = K - mg
+    dt, dev = P.dtype, P.device
+    cone = isinstance(F, ConeF)
+    exact = factor_precision in ("highest", "float32")
+    if cone:
+        C_, fd, v_, mu_v = F.C, F.fd, F.valid, F.mu
+        if not (g_ == C_ and mg == C_ * (1 + fd)):
+            raise ValueError("gamma elimination with a ConeF expects the "
+                             "engine row layout")
+        pad_q = lambda x: torch.nn.functional.pad(x, (0, q))
+
+        def wf_of(wk):
+            return sum(wk[:, C_ * (1 + d):C_ * (2 + d)] for d in range(fd))
+
+        # Skg = [0_C; -E; 0_q], Sgk = [-diag(mu), E^T, 0_q]: O(C) products
+        skg_apply = lambda tD: pad_q(torch.cat(
+            [torch.zeros_like(tD)] + [-v_ * tD] * fd, -1))
+        sgk_t_apply = lambda tD: pad_q(torch.cat(
+            [-mu_v * tD] + [v_ * tD] * fd, -1))
+        sgk_apply = lambda wk: -mu_v * wk[:, :C_] + v_ * wf_of(wk)
+        skg_t_apply = lambda wk: -v_ * wf_of(wk)
+    else:
+        zeros_qg = torch.zeros((B, q, g_), dtype=dt, device=dev)
+        Skg = torch.cat([F[:, :mg, mg:m], zeros_qg], 1)           # (B, K, g)
+        Sgk = torch.cat([F[:, mg:m, :mg], zeros_qg.transpose(1, 2)], 2)
+        skg_apply = lambda tD: torch.einsum("bkg,bg->bk", Skg, tD)
+        sgk_t_apply = lambda tD: torch.einsum("bgk,bg->bk", Sgk, tD)
+        sgk_apply = lambda wk: torch.einsum("bgk,bk->bg", Sgk, wk)
+        skg_t_apply = lambda wk: torch.einsum("bkg,bk->bg", Skg, wk)
+        eye_mg = torch.eye(mg, dtype=dt, device=dev)
+        F_kk = F[:, :mg, :mg]
+
+    def factor_schur_gamma(d_inv):
+        if cone:
+            S, _, Dginv, _, _ = ipm.unrot_schur(P, d_inv, mu_v, v_, C_, fd,
+                                                reg)
+        else:
+            Dginv = 1.0 / (d_inv[:, mg:] + reg)
+            S = -P
+            S[:, :mg, :mg] += (F_kk - d_inv[:, :mg, None] * eye_mg
+                               - reg * eye_mg)
+            S[:, mg:, mg:].diagonal(dim1=1, dim2=2).sub_(reg)
+            S = S + torch.einsum("bkg,bg,bgj->bkj", Skg, Dginv, Sgk)
+        fac = _factor(S, backend, exact)
+        apply = _dense_apply(S)
+
+        def reduced(rhs, trans=0, r1_zero=False):
+            r1, r2 = rhs[:, :n], rhs[:, n:]
+            rk = torch.cat([r2[:, :mg], r2[:, m:]], -1)
+            tg = r2[:, mg:m]                     # gamma G rows are zero
+            tk = rk if r1_zero else rk - torch.einsum(
+                "bkn,bn->bk", Ghat, qinv * r1)
+            if trans == 0:
+                wk = _solve_refined(fac, apply, tk + skg_apply(Dginv * tg),
+                                    0, refine)
+                wg = -Dginv * (tg - sgk_apply(wk))
+            else:
+                wk = _solve_refined(fac, apply,
+                                    tk + sgk_t_apply(Dginv * tg), 1, refine)
+                wg = -Dginv * (tg - skg_t_apply(wk))
+            return torch.cat([wk[:, :mg], wg, wk[:, mg:]], -1), wk
+
+        def z_from(r1, wk):
+            return qinv * (r1 - torch.einsum("bkn,bk->bn", Ghat, wk))
+
+        def solve(rhs, trans=0, r1_zero=False):
+            w_full, wk = reduced(rhs, trans, r1_zero)
+            return torch.cat([z_from(rhs[:, :n], wk), w_full], -1)
+
+        solve.reduced = reduced
+        solve.z_from = z_from
+        return solve
+
+    # compact residual products over Ghat: G's gamma rows are zero
+    def res_down(z):
+        y = torch.einsum("bkn,bn->bk", Ghat, z)
+        return torch.cat([y[:, :mg], y.new_zeros((B, g_)), y[:, mg:]], -1)
+
+    def res_up(lam, nu):
+        return torch.einsum("bkn,bk->bn", Ghat,
+                            torch.cat([lam[:, :mg], nu], -1))
+
+    factor_schur_gamma.residual_ops = (res_down, res_up)
+    factor_schur_gamma.has_reduced = True
+    factor_schur_gamma.operands = operands
+    return factor_schur_gamma
+
+
+def _assemble_kkt(Q, G, A, F, d_inv, reg):
+    """Reduced (slack-eliminated) KKT matrix K(d), batched: Q (B, n, n),
+    G (B, m, n), A (B, q, n), F (B, m, m), d_inv (B, m) = s / lam."""
+    B, n = Q.shape[0], Q.shape[-1]
+    m, q = G.shape[-2], A.shape[-2]
+    opts = dict(dtype=Q.dtype, device=Q.device)
+    eye = lambda k: torch.eye(k, **opts)
+    top = torch.cat([Q + reg * eye(n), G.transpose(1, 2), A.transpose(1, 2)],
+                    -1)
+    mid = torch.cat([G, F - d_inv[..., None] * eye(m) - reg * eye(m),
+                     torch.zeros((B, m, q), **opts)], -1)
+    bot = torch.cat([A, torch.zeros((B, q, m), **opts),
+                     (-reg * eye(q)).expand(B, q, q)], -1)
+    return torch.cat([top, mid, bot], -2)
+
+
+def make_kkt_factor(Q, q_diag, G, A, F, reg, backend="auto", gamma_rows=0,
+                    refine=0, factor_precision=None, fric_pair=False):
+    """KKT solve operator factory ``factor(d_inv) -> solve(rhs, trans=0,
+    r1_zero=False)`` for the reduced KKT system K(d) (the JAX package's
+    ``make_kkt_factor``): the dense K(d) when ``q_diag`` is None, else the
+    Schur complement over P = Ghat Q^-1 Ghat^T, with the gamma rows (and,
+    with ``fric_pair`` on the engine layout, the friction pair's u rows)
+    eliminated when ``gamma_rows`` > 0 (module docstring).  All inputs
+    batched; F a dense (B, m, m) tensor or a ``ConeF``."""
+    n = Q.shape[-1]
+    m, q = G.shape[-2], A.shape[-2]
+    cone = isinstance(F, ConeF)
+    exact = factor_precision in ("highest", "float32")
+    if q_diag is None:
+        Fd = F.dense() if cone else F
+
+        def factor_dense(d_inv):
+            K = _assemble_kkt(Q, G, A, Fd, d_inv, reg)
+            fac = _factor(K, backend, exact)
+            apply = _dense_apply(K)
+            # r1_zero accepted for interface parity: nothing to skip here
+            return lambda rhs, trans=0, r1_zero=False: _solve_refined(
+                fac, apply, rhs, trans, refine)
+
+        return factor_dense
+
+    if gamma_rows == 0 or gamma_rows > m:
+        Fd = F.dense() if cone else F
+        P, Ghat, qinv = ipm.unrot_operands(q_diag, G, A, 0)   # [G; A]
+        eye_m = torch.eye(m, dtype=Q.dtype, device=Q.device)
+
+        def factor_schur(d_inv):
+            S = -P
+            S[:, :m, :m] += Fd - d_inv[..., None] * eye_m - reg * eye_m
+            S[:, m:, m:].diagonal(dim1=1, dim2=2).sub_(reg)
+            fac = _factor(S, backend, exact)
+            apply = _dense_apply(S)
+
+            def solve(rhs, trans=0, r1_zero=False):
+                r1, r2 = rhs[:, :n], rhs[:, n:]
+                t = r2 if r1_zero else r2 - torch.einsum(
+                    "bmn,bn->bm", Ghat, qinv * r1)
+                w = _solve_refined(fac, apply, t, trans, refine)
+                z = qinv * (r1 - torch.einsum("bmn,bm->bn", Ghat, w))
+                return torch.cat([z, w], -1)
+
+            return solve
+
+        return factor_schur
+
+    if (cone and fric_pair and F.fd == 2 and gamma_rows == F.C
+            and m - gamma_rows == 3 * F.C):
+        return _rot_factor_factory(ipm.rot_operands(q_diag, G, A, F.C), F,
+                                   reg, factor_precision, refine, backend)
+    return _gamma_factor_factory(ipm.unrot_operands(q_diag, G, A,
+                                                    gamma_rows),
+                                 F, m, gamma_rows, reg, factor_precision,
+                                 refine, backend)
 
 
 def _expand_batch(arrays, base_rank):
@@ -224,6 +432,32 @@ def _expand_batch(arrays, base_rank):
     out = [a.expand((B,) + tuple(a.shape)) if a.dim() == r else a
            for a, r in zip(arrays, base_rank)]
     return batched, out
+
+
+def solve_eq_kkt(Q, p, A, b, reg=None, backend="auto"):
+    """Equality-only KKT solve: [[Q, A^T], [A, 0]] [z; nu] = [-p; b], with
+    the solver's regularization (the JAX package's ``solve_eq_kkt``; the
+    reference's contact-free path).  Single-instance or batched; returns
+    (z, nu).  The pivotless factor (kernels on a CUDA tensor), or the
+    pivoted library LU with ``backend='xla'``."""
+    _check_backend(backend)
+    single = Q.dim() == 2
+    if single:
+        Q, p, A, b = Q[None], p[None], A[None], b[None]
+    B, n = Q.shape[0], Q.shape[-1]
+    q = A.shape[-2]
+    opts = dict(dtype=Q.dtype, device=Q.device)
+    if reg is None:
+        reg = _dtype_consts(Q.dtype)["reg"]
+    K = torch.cat([
+        torch.cat([Q + reg * torch.eye(n, **opts), A.transpose(1, 2)], -1),
+        torch.cat([A, (-reg * torch.eye(q, **opts)).expand(B, q, q)], -1),
+    ], -2)
+    sol = linalg.plu_solve(_factor(K, backend), torch.cat([-p, b], -1))
+    z, nu = sol[:, :n], sol[:, n:]
+    if single:
+        z, nu = z[0], nu[0]
+    return z, nu
 
 
 def _start(kkt_factor, p, h, b, row_mask, consts):
@@ -247,11 +481,16 @@ def _start(kkt_factor, p, h, b, row_mask, consts):
     return z, s, lam, nu
 
 
-def initial_point(operands, p, h, b, F, row_mask, consts):
-    """The solver's starting iterate (z, s, lam, nu) through the rotated KKT
-    factor.  ``operands`` = ``ops.ipm.rot_operands(q_diag, G, A, F.C)``."""
-    return _start(_rot_factor_factory(operands, F, consts["reg"]),
-                  p, h, b, row_mask, consts)
+def initial_point(operands, p, h, b, F, row_mask, consts, fric_pair=True):
+    """The solver's starting iterate (z, s, lam, nu) through the rotated
+    KKT factor (``operands`` = ``ops.ipm.rot_operands(q_diag, G, A, F.C)``)
+    or, with ``fric_pair=False``, the unrotated gamma factor
+    (``ops.ipm.unrot_operands``)."""
+    if fric_pair:
+        fac = _rot_factor_factory(operands, F, consts["reg"])
+    else:
+        fac = _gamma_factor_factory(operands, F, F.m, F.C, consts["reg"])
+    return _start(fac, p, h, b, row_mask, consts)
 
 
 def _max_step(v, dv, mask):
@@ -266,14 +505,17 @@ class _Packed:
     """Residuals, merit and the best-iterate tail of the packed loops, on
     the iterate X = [z | s | lam | nu] (B, n + 2m + q); padded rows
     (``row_mask`` 0) are left out of the complementarity measure and the
-    residual norm."""
+    residual norm.  The residual products ride the factor's compact
+    ``residual_ops`` where it has them, else dense G, A, F and Q (or its
+    diagonal ``q_diag``)."""
 
-    def __init__(self, kkt_factor, q_diag, p, h, b, F, row_mask):
+    def __init__(self, kkt_factor, Q, q_diag, G, A, p, h, b, F, row_mask):
         B, n = p.shape
         m, q = h.shape[-1], b.shape[-1]
         dev = p.device
-        self.kkt_factor, self.q_diag, self.p, self.h, self.b, self.F = (
-            kkt_factor, q_diag, p, h, b, F)
+        self.res_ops = getattr(kkt_factor, "residual_ops", None)
+        self.Q, self.q_diag, self.G, self.A = Q, q_diag, G, A
+        self.p, self.h, self.b, self.F = p, h, b, F
         self.n, self.m = n, m
         self.maskb = row_mask > 0
         self.maskf = row_mask.to(p.dtype)
@@ -293,11 +535,22 @@ class _Packed:
 
     def residuals(self, X):
         z, s, lam, nu = self.split(X)
-        res_down, res_up = self.kkt_factor.residual_ops
-        ga = res_down(z)
-        rx = self.q_diag * z + self.p + res_up(lam, nu)
-        rz = ga[:, :self.m] + self.F.matvec(lam) + s - self.h
-        ry = ga[:, self.m:] - self.b
+        bmv = lambda M, x: torch.einsum("bij,bj->bi", M, x)
+        bmtv = lambda M, x: torch.einsum("bij,bi->bj", M, x)
+        Qz = (self.q_diag * z if self.q_diag is not None
+              else bmv(self.Q, z))
+        Flam = (self.F.matvec(lam) if isinstance(self.F, ConeF)
+                else bmv(self.F, lam))
+        if self.res_ops is not None:
+            res_down, res_up = self.res_ops
+            ga = res_down(z)
+            rx = Qz + self.p + res_up(lam, nu)
+            rz = ga[:, :self.m] + Flam + s - self.h
+            ry = ga[:, self.m:] - self.b
+        else:
+            rx = Qz + self.p + bmtv(self.G, lam) + bmtv(self.A, nu)
+            rz = bmv(self.G, z) + Flam + s - self.h
+            ry = bmv(self.A, z) - self.b
         return torch.cat([rx, rz, ry], -1)
 
     def resid_norm(self, r):
@@ -318,22 +571,24 @@ class _Packed:
                              self.resid_norm(self.residuals(X)), iters)
 
 
-def unfused_loop(kkt_factor, q_diag, p, h, b, F, row_mask, z, s, lam, nu, *,
-                 max_iter, tol, consts, not_improved_lim, stall_rtol):
+def unfused_loop(kkt_factor, pk, z, s, lam, nu, *, max_iter, tol, consts,
+                 not_improved_lim, stall_rtol, gondzio=0, verbose=False):
     """The packed unfused interior-point loop of the JAX package from the
-    iterate (z, s, lam, nu): the state is one (B, n + 2m + q) tensor
-    X = [z | s | lam | nu]; per iteration one factor of the rotated Schur
-    system, the predictor solve and the corrector as a delta solve, one
-    z-recovery, the 0.99 step, the floor clamp, the pin of padded rows and
-    the divergence guard; stall counter, ``stall_rtol``, best-iterate
-    return.  Stops after ``max_iter`` iterations or once every world is
-    done (one host read per iteration).  Returns a :class:`PdipmSolution`.
-    """
-    B, n = p.shape
-    m, q = h.shape[-1], b.shape[-1]
-    dt, dev = p.dtype, p.device
+    iterate (z, s, lam, nu), with ``pk`` the loop's :class:`_Packed`: the
+    state is one (B, n + 2m + q) tensor X = [z | s | lam | nu]; per
+    iteration one factor, the predictor solve and the corrector as a delta
+    solve (through ``solve.reduced`` and one z-recovery where the factor
+    has them, else full solves), ``gondzio`` Gondzio centrality correctors,
+    the 0.99 step, the floor clamp, the pin of padded rows and the
+    divergence guard; stall counter, ``stall_rtol``, best-iterate return.
+    ``verbose`` prints the JAX package's line per iteration.  Stops after
+    ``max_iter`` iterations or once every world is done (one host read per
+    iteration).  Returns a :class:`PdipmSolution`."""
+    B, n = pk.p.shape
+    m, q = pk.m, pk.b.shape[-1]
+    dt, dev = pk.p.dtype, pk.p.device
     tiny = consts["tiny"]
-    pk = _Packed(kkt_factor, q_diag, p, h, b, F, row_mask)
+    has_reduced = getattr(kkt_factor, "has_reduced", False)
     maskb = pk.maskb
     sls = slice(n, n + 2 * m)
     ones_n = torch.ones((B, n), dtype=torch.bool, device=dev)
@@ -343,11 +598,17 @@ def unfused_loop(kkt_factor, q_diag, p, h, b, F, row_mask, z, s, lam, nu, *,
                            torch.full((2 * m,), tiny, dtype=dt, device=dev),
                            torch.full((q,), -fmax, dtype=dt, device=dev)])
     pinm = torch.cat([ones_n, maskb, maskb, ones_q], -1)
-    pinv = torch.cat([torch.zeros((B, n), dtype=dt, device=dev), h,
+    pinv = torch.cat([torch.zeros((B, n), dtype=dt, device=dev), pk.h,
                       torch.full((B, m), tiny, dtype=dt, device=dev),
                       torch.zeros((B, q), dtype=dt, device=dev)], -1)
     mask2 = torch.cat([maskb, maskb], -1)
     comp_mu = pk.comp_mu
+
+    def rz_rhs(like, rows):
+        """A right-hand side that is zero but on the rz rows."""
+        rhs = torch.zeros_like(like)
+        rhs[:, n:n + m] = rows
+        return rhs
 
     X = torch.cat([z, s, lam, nu], -1)
     bestX = X
@@ -375,6 +636,13 @@ def unfused_loop(kkt_factor, q_diag, p, h, b, F, row_mask, z, s, lam, nu, *,
             stalled = torch.zeros_like(done)
         new_done = done | (merit < tol) | stalled
         iters = torch.where(new_done & ~done, i, iters)
+        if verbose:   # the reference's residual dump: one host read
+            HOST_READS["verbose"] += 1
+            mu_max, r_max, d = torch.stack([
+                mu.amax(), pk.resid_norm(r).amax(),
+                new_done.sum().to(dt)]).tolist()
+            print(f"pdipm iter {i}: mu={mu_max:.3e} resid={r_max:.3e} "
+                  f"done={int(d)}/{B}", flush=True)
 
         lam_safe = torch.clamp(lam, min=tiny)
         d_inv = torch.clamp(s / lam_safe, consts["dinv_min"],
@@ -385,8 +653,12 @@ def unfused_loop(kkt_factor, q_diag, p, h, b, F, row_mask, z, s, lam, nu, *,
         r4 = s * lam
         rhs_aff = -r
         rhs_aff[:, n:n + m] += r4 / lam_safe
-        wa_full, wk_a = kkt_solve.reduced(rhs_aff)
-        dlam_a = wa_full[:, :m]
+        if has_reduced:
+            wa_full, wk_a = kkt_solve.reduced(rhs_aff)
+            dlam_a = wa_full[:, :m]
+        else:
+            sol_a = kkt_solve(rhs_aff)
+            dlam_a = sol_a[:, n:n + m]
         ds_a = -r4 / lam_safe - d_inv * dlam_a
         dsl_a = torch.cat([ds_a, dlam_a], -1)
         sl = X[:, sls]
@@ -398,15 +670,57 @@ def unfused_loop(kkt_factor, q_diag, p, h, b, F, row_mask, z, s, lam, nu, *,
 
         # corrector, solved as a delta on the predictor (r1 block zero)
         r4c = r4 + ds_a * dlam_a - (sigma * mu)[:, None]
-        rhs_d = torch.zeros_like(r)
-        rhs_d[:, n:n + m] = (r4c - r4) / lam_safe
-        wd_full, wk_d = kkt_solve.reduced(rhs_d, r1_zero=True)
-        w_full = wa_full + wd_full
-        dlam = w_full[:, :m]
-        ds = -r4c / lam_safe - d_inv * dlam
-        dz = kkt_solve.z_from(rhs_aff[:, :n], wk_a + wk_d)
-        dX = torch.cat([dz, ds, dlam, w_full[:, m:]], -1)
-        alpha = 0.99 * _max_step(sl, dX[:, sls], mask2)
+        rhs_d = rz_rhs(r, (r4c - r4) / lam_safe)
+        if has_reduced:
+            wd_full, wk_d = kkt_solve.reduced(rhs_d, r1_zero=True)
+            w_full = wa_full + wd_full
+            dlam = w_full[:, :m]
+            ds = -r4c / lam_safe - d_inv * dlam
+            wk_tot = wk_a + wk_d
+            # with gondzio, z waits for the accepted correctors' wk
+            dz = (kkt_solve.z_from(rhs_aff[:, :n], wk_tot) if gondzio == 0
+                  else torch.zeros((B, n), dtype=dt, device=dev))
+            tail = w_full[:, m:]
+        else:
+            sol_c = sol_a + kkt_solve(rhs_d, r1_zero=True)
+            dlam = sol_c[:, n:n + m]
+            ds = -r4c / lam_safe - d_inv * dlam
+            dz, tail = sol_c[:, :n], sol_c[:, n + m:]
+        dX = torch.cat([dz, ds, dlam, tail], -1)
+        alpha_raw = _max_step(sl, dX[:, sls], mask2)
+
+        # Gondzio multiple centrality correctors: each reuses the factor
+        # for one more solve toward the box [0.1, 10] * sigma mu, accepted
+        # per world only where it buys step length
+        if gondzio > 0:
+            mu_t = (sigma * mu)[:, None]
+            for _ in range(gondzio):
+                a_hat = torch.clamp(alpha_raw + 0.08, max=1.0)[:, None]
+                sl_t = sl + a_hat * dX[:, sls]
+                v_t = sl_t[:, :m] * sl_t[:, m:]
+                r4g = v_t - torch.clamp(v_t, min=0.1 * mu_t, max=10.0 * mu_t)
+                r4g = torch.where(maskb, r4g, 0.0)
+                rhs_g = rz_rhs(r, r4g / lam_safe)
+                if has_reduced:
+                    wg_full, wk_g = kkt_solve.reduced(rhs_g, r1_zero=True)
+                    dlam_g = wg_full[:, :m]
+                    dz_g, tail_g = torch.zeros_like(dz), wg_full[:, m:]
+                else:
+                    sol_g = kkt_solve(rhs_g, r1_zero=True)
+                    dlam_g = sol_g[:, n:n + m]
+                    dz_g, tail_g = sol_g[:, :n], sol_g[:, n + m:]
+                ds_g = -r4g / lam_safe - d_inv * dlam_g
+                dX_c = dX + torch.cat([dz_g, ds_g, dlam_g, tail_g], -1)
+                alpha_c = _max_step(sl, dX_c[:, sls], mask2)
+                ok = alpha_c >= torch.clamp(alpha_raw + 0.008, max=1.0)
+                dX = torch.where(ok[:, None], dX_c, dX)
+                if has_reduced:
+                    wk_tot = wk_tot + torch.where(ok[:, None], wk_g, 0.0)
+                alpha_raw = torch.where(ok, alpha_c, alpha_raw)
+            if has_reduced:
+                dX = torch.cat([kkt_solve.z_from(rhs_aff[:, :n], wk_tot),
+                                dX[:, n:]], -1)
+        alpha = 0.99 * alpha_raw
 
         X_n = torch.maximum(X + alpha[:, None] * dX, floor_row)
         X_n = torch.where(pinm, X_n, pinv)
@@ -418,66 +732,95 @@ def unfused_loop(kkt_factor, q_diag, p, h, b, F, row_mask, z, s, lam, nu, *,
 
 
 def pdipm_solve(Q, p, G, h, A, b, F, *, max_iter=20, tol=1e-7,
-                q_is_diag=None, gamma_rows=0, row_mask=None, refine=0,
-                not_improved_lim=3, fric_pair=False, gondzio=0,
-                stall_rtol=0.0, factor_precision=None):
+                backend="auto", q_diag=None, verbose=False, gamma_rows=0,
+                q_is_diag=None, row_mask=None, refine=0, not_improved_lim=3,
+                factor_precision=None, fric_pair=False, gondzio=0,
+                stall_rtol=0.0):
     """Solve a batch of mixed-LCP instances (single instances are promoted
     to a batch of one and squeezed back).  Same arguments and semantics as
-    the JAX package's ``pdipm_solve`` for the ported layout (module
-    docstring); ``row_mask`` (B, m) is 1.0 on real inequality rows and 0.0
-    on padding, which is pinned at s = h, lam = tiny.
+    the JAX package's ``pdipm_solve``: Q dense or diagonal (``q_is_diag``,
+    None infers it from the shape), or dense with its diagonal ``q_diag``
+    for the Schur path; F a dense tensor or a ``ConeF``; ``row_mask``
+    (B, m) 1.0 on real inequality rows and 0.0 on padding, which is pinned
+    at s = h, lam = tiny.  ``backend``: ``'auto'``, ``'pallas'`` and
+    ``'fused'`` run the port's kernels on CUDA tensors (their plain
+    versions on CPU tensors) and the fused loops where they fit;
+    ``'xla'`` the pivoted library LU and the unfused loop.
     ``factor_precision='highest'`` (or ``'float32'``) sends the blocked
-    factor's float32 panel inverses to the scalar Gauss-Jordan kernel, as
-    in the JAX package.  Returns a :class:`PdipmSolution`."""
-    diag_form = (Q.shape == p.shape if q_is_diag is None
-                 else bool(q_is_diag))
-    if not diag_form:
-        raise _unported("A3", "the solver for a dense Q")
-    if not isinstance(F, ConeF):
-        raise _unported("A3", "the solver for a dense F")
-    if gondzio:
-        raise _unported("A3", "gondzio")
-    batched, (Q, p, G, h, A, b, mu_f, v_f) = _expand_batch(
-        (Q, p, G, h, A, b, F.mu, F.valid), (1, 1, 2, 1, 2, 1, 1, 1))
-    F = ConeF(mu_f, v_f, F.fd)
+    factor's float32 panel inverses to the scalar Gauss-Jordan kernel.
+    ``verbose`` prints one line per iteration (one host read each) and
+    keeps the solve in the unfused loop.  Returns a
+    :class:`PdipmSolution`."""
+    _check_backend(backend)
+    stall_rtol = float(stall_rtol)
+    if q_is_diag is None:
+        diag_form = tuple(Q.shape) == tuple(p.shape) or (
+            Q.dim() == 1 and p.dim() == 2 and Q.shape[0] == p.shape[-1])
+    else:
+        diag_form = bool(q_is_diag)
+    q_rank = 1 if diag_form else 2
+    cone = isinstance(F, ConeF)
+    if cone:
+        batched, (Q, p, G, h, A, b, mu_f, v_f) = _expand_batch(
+            (Q, p, G, h, A, b, F.mu, F.valid), (q_rank, 1, 2, 1, 2, 1, 1, 1))
+        F = ConeF(mu_f, v_f, F.fd)
+    else:
+        batched, (Q, p, G, h, A, b, F) = _expand_batch(
+            (Q, p, G, h, A, b, F), (q_rank, 1, 2, 1, 2, 1, 2))
     B, n = p.shape
     m, q = G.shape[-2], A.shape[-2]
-    dt = Q.dtype
+    dt, dev = Q.dtype, p.device
     consts = _dtype_consts(dt)
-    if m == 0 or max_iter <= 0:
-        raise _unported("A3", "the solver without inequality rows or "
-                        "iterations")
-    if not (gamma_rows == F.C and fric_pair and F.fd == 2 and m == 4 * F.C):
-        raise _unported("A3/B2b", "the solver for systems without the "
-                        "friction-pair rotation (the plain gamma "
-                        "elimination and the unrotated fused kernel)")
+    if diag_form and q_diag is None:
+        q_diag = Q
+    if q_diag is not None:
+        q_diag = q_diag.expand(B, n)
+
+    def squeeze(sol):
+        return sol if batched else PdipmSolution(*(x[0] for x in sol))
+
+    if m == 0:
+        z, nu = solve_eq_kkt(torch.diag_embed(Q) if diag_form else Q, p, A,
+                             b, consts["reg"], backend)
+        zero_m = torch.zeros((B, 0), dtype=dt, device=dev)
+        zero_b = torch.zeros((B,), dtype=dt, device=dev)
+        return squeeze(PdipmSolution(
+            z, zero_m, zero_m, nu, zero_b, zero_b,
+            torch.zeros((B,), dtype=torch.int32, device=dev)))
+
     if row_mask is None:
-        row_mask = torch.ones((B, m), dtype=dt, device=p.device)
+        row_mask = torch.ones((B, m), dtype=dt, device=dev)
     row_mask = row_mask.expand(B, m).to(dt)
-    operands = ipm.rot_operands(Q, G, A, F.C)
-    kkt_factor = _rot_factor_factory(operands, F, consts["reg"],
-                                     factor_precision, refine)
+    kkt_factor = make_kkt_factor(Q, q_diag, G, A, F, consts["reg"], backend,
+                                 gamma_rows if q_diag is not None else 0,
+                                 refine, factor_precision, fric_pair)
+    # the fused whole-IPM kernel: the JAX package's dispatch, with the
+    # rotated kernel preferred where the caller guarantees the +- pair
+    fuse = fuse_rot = False
+    plain_mehrotra = refine == 0 and gondzio == 0 and not verbose
+    if (cone and q_diag is not None and gamma_rows == F.C and plain_mehrotra
+            and max_iter > 0 and backend != "xla"):
+        fuse_rot = bool(fric_pair) and ipm.fused_supported(
+            m - F.C, q, F.C, F.fd, fric_pair=True)
+        fuse = fuse_rot or ipm.fused_supported(m - F.C, q, F.C, F.fd)
     z, s, lam, nu = _start(kkt_factor, p, h, b, row_mask, consts)
     kw = dict(max_iter=max_iter, tol=tol, consts=consts,
-              not_improved_lim=not_improved_lim,
-              stall_rtol=float(stall_rtol))
-    plain_mehrotra = refine == 0 and gondzio == 0
-    if plain_mehrotra and ipm.fused_supported(m - F.C, q, F.C, F.fd,
-                                              fric_pair=True):
+              not_improved_lim=not_improved_lim, stall_rtol=stall_rtol)
+    pk = lambda: _Packed(kkt_factor, Q, q_diag, G, A, p, h, b, F, row_mask)
+    iter_inv_raw = getattr(kkt_factor, "iter_inv_raw", None)
+    if fuse:
         sol = PdipmSolution(*ipm.fused_ipm(
-            operands, p, h, b, F.mu, F.valid, row_mask, z, s, lam, nu,
-            C=F.C, fd=F.fd, fric_pair=True, **kw))
-    elif FUSE_ITER and plain_mehrotra and ipm_iter.fused_iter_supported(
-            F.C, q, n, p.element_size()):
+            kkt_factor.operands, p, h, b, F.mu, F.valid, row_mask, z, s,
+            lam, nu, C=F.C, fd=F.fd, fric_pair=fuse_rot, **kw))
+    elif (FUSE_ITER and plain_mehrotra and cone and max_iter > 0
+          and iter_inv_raw is not None
+          and ipm_iter.fused_iter_supported(F.C, q, n, p.element_size())):
         X, bestX, best_merit, iters = ipm_iter.fused_iter_ipm(
-            operands[1], operands[2], p, h, b, F.mu, F.valid, row_mask,
-            torch.cat([z, s, lam, nu], -1), C=F.C,
-            inv_raw=kkt_factor.iter_inv_raw, host_reads=HOST_READS, **kw)
-        sol = _Packed(kkt_factor, Q, p, h, b, F, row_mask).solution(
-            X, bestX, best_merit, iters)
+            kkt_factor.operands[1], kkt_factor.operands[2], p, h, b, F.mu,
+            F.valid, row_mask, torch.cat([z, s, lam, nu], -1), C=F.C,
+            inv_raw=iter_inv_raw, host_reads=HOST_READS, **kw)
+        sol = pk().solution(X, bestX, best_merit, iters)
     else:
-        sol = unfused_loop(kkt_factor, Q, p, h, b, F, row_mask, z, s, lam,
-                           nu, **kw)
-    if not batched:
-        sol = PdipmSolution(*(x[0] for x in sol))
-    return sol
+        sol = unfused_loop(kkt_factor, pk(), z, s, lam, nu, gondzio=gondzio,
+                           verbose=verbose, **kw)
+    return squeeze(sol)

@@ -1,20 +1,26 @@
 """The whole interior-point loop in one kernel, for small contact systems.
 
 Counterpart of ``lcp_physics_tpu/ops/ipm.py``.  For the engine layout
-(diagonal Q, ``ConeF`` friction coupling, gamma rows eliminated) with the
-friction-pair rotation (``fric_pair=True``: the Schur system has
-K = 2C + q <= ``MAX_FUSED_K`` rows), every Mehrotra iteration — residuals,
-Schur assembly, Gauss-Jordan explicit inverse, predictor and corrector
-solves with one refinement step each, ratio tests and masked updates, stall
-and best-iterate bookkeeping — runs inside ``csrc/fused_ipm.cu``, one CTA
-per world.
+(diagonal Q, ``ConeF`` friction coupling, gamma rows eliminated) with a
+Schur system of at most ``MAX_FUSED_K`` rows, every Mehrotra iteration —
+residuals, Schur assembly, Gauss-Jordan explicit inverse, predictor and
+corrector solves with one refinement step each, ratio tests and masked
+updates, stall and best-iterate bookkeeping — runs inside
+``csrc/fused_ipm.cu``, one CTA per world.  Two variants, as in the JAX
+package:
 
-``fused_ipm`` runs the loop on the operands ``rot_operands`` forms —
-Ghat = [G_c; sqrt2 G_f1; A], P = Ghat Q^-1 Ghat^T and Q^-1 — with the CUDA
-kernel on GPU tensors and the plain torch transcription of the same loop
-on CPU tensors.  ``fused_ipm_ref`` always runs the plain version.
-``LAUNCHES["fused_ipm"]`` counts kernel launches.  The unrotated variant
-(K = (1 + fd)C + q) is not ported yet (ROADMAP B2b).
+* rotated (``fric_pair=True``, fd = 2): the two friction rows of a contact
+  are exact negatives, so the Schur system has K = 2C + q rows over
+  ``rot_operands``' Ghat = [G_c; sqrt2 G_f1; A];
+* unrotated (otherwise): K = (1 + fd)C + q rows over ``unrot_operands``'
+  Ghat = [G_kept; A], with the per-contact cone bands of ``unrot_schur``.
+
+``fused_ipm`` runs the loop on the operands (P = Ghat Q^-1 Ghat^T, Ghat,
+Q^-1) with the CUDA kernel on GPU tensors and the plain torch
+transcription of the same loop on CPU tensors.  ``fused_ipm_ref`` always
+runs the plain version.  ``LAUNCHES`` counts kernel launches,
+``"fused_ipm"`` the rotated variant and ``"fused_ipm_unrot"`` the
+unrotated one.
 """
 from __future__ import annotations
 
@@ -29,7 +35,7 @@ from lcp_physics_tpu_torch.ops import _build
 from lcp_physics_tpu_torch.ops.linalg import gj_inv_ref
 
 MAX_FUSED_K = 48
-LAUNCHES = {"fused_ipm": 0}
+LAUNCHES = {"fused_ipm": 0, "fused_ipm_unrot": 0}
 SMEM_LIMIT = 232448  # bytes of shared memory one CTA may use on Hopper
 
 _SQ2 = math.sqrt(2.0)
@@ -44,13 +50,24 @@ def fused_supported(mg, q, C, fd, fric_pair=False):
     return K <= MAX_FUSED_K
 
 
+def _operands(Ghat, q_diag):
+    qinv = 1.0 / q_diag
+    P = (Ghat * qinv[:, None, :]) @ Ghat.transpose(1, 2)
+    return P, Ghat, qinv
+
+
 def rot_operands(q_diag, G, A, C):
     """Ghat = [G_c; sqrt2 G_f1; A] (B, K, n), P = Ghat Q^-1 Ghat^T (B, K, K)
     and Q^-1 (B, n): the fixed operands of the rotated Schur system."""
-    qinv = 1.0 / q_diag
-    Ghat = torch.cat([G[:, :C], _SQ2 * G[:, C:2 * C], A], dim=1)
-    P = (Ghat * qinv[:, None, :]) @ Ghat.transpose(1, 2)
-    return P, Ghat, qinv
+    return _operands(torch.cat([G[:, :C], _SQ2 * G[:, C:2 * C], A], dim=1),
+                     q_diag)
+
+
+def unrot_operands(q_diag, G, A, C):
+    """Ghat = [G_kept; A] (B, K, n) (the G rows above the C gamma rows),
+    P = Ghat Q^-1 Ghat^T (B, K, K) and Q^-1 (B, n): the fixed operands of
+    the unrotated Schur system."""
+    return _operands(torch.cat([G[:, :G.shape[1] - C], A], dim=1), q_diag)
 
 
 class RotSchur(NamedTuple):
@@ -87,30 +104,83 @@ def rot_schur(P, d_inv, mu_v, valid, C, reg):
     return RotSchur(S, dmain, bn, Dginv, cn, delta, g_u)
 
 
+class UnrotSchur(NamedTuple):
+    S: torch.Tensor      # (B, K, K) Schur matrix, K = (1 + fd)C + q
+    dmain: torch.Tensor  # (B, K) S = -P - diag(dmain) + the cone bands
+    Dginv: torch.Tensor  # (B, C) the eliminated gamma rows' inverse pivots
+    cn: torch.Tensor     # (B, C) band (friction row, normal column)
+    cf: torch.Tensor     # (B, C) band (friction row, friction column)
+
+
+def unrot_schur(P, d_inv, mu_v, valid, C, fd, reg):
+    """The Schur system of the kept rows [normal (C); friction (fd*C); q]
+    for the scaling ``d_inv`` (B, (2 + fd)C), the gamma rows eliminated in
+    closed form (the JAX package's ``factor_schur_gamma`` with a
+    ``ConeF``): S = -P - diag(dmain) plus, for each contact i and
+    directions d, d2, cn_i at (C(1+d)+i, i) and cf_i at
+    (C(1+d)+i, C(1+d2)+i)."""
+    B, K = P.shape[:2]
+    mg = C * (1 + fd)
+    Dginv = 1.0 / (d_inv[:, mg:] + reg)
+    cn = valid * mu_v * Dginv
+    cf = -valid * Dginv
+    dmain = torch.cat([d_inv[:, :mg] + reg,
+                       torch.full((B, K - mg), reg, dtype=P.dtype,
+                                  device=P.device)], -1)
+    S = -P
+    S.diagonal(dim1=1, dim2=2).sub_(dmain)
+    for d in range(fd):
+        rows = slice(C * (1 + d), C * (2 + d))
+        S[:, rows, :C].diagonal(dim1=1, dim2=2).add_(cn)
+        for d2 in range(fd):
+            S[:, rows, C * (1 + d2):C * (2 + d2)].diagonal(
+                dim1=1, dim2=2).add_(cf)
+    return UnrotSchur(S, dmain, Dginv, cn, cf)
+
+
+def unrot_apply(us, P, x, C, fd):
+    """S x from the structured form of :func:`unrot_schur`: one P matvec,
+    the diagonal and the cone bands (the kernel's refinement residual)."""
+    y = -torch.einsum("bij,bj->bi", P, x) - us.dmain * x
+    xf = sum(x[:, C * (1 + d):C * (2 + d)] for d in range(fd))
+    band = us.cn * x[:, :C] + us.cf * xf
+    return y + torch.nn.functional.pad(torch.cat([band] * fd, -1),
+                                       (C, x.shape[1] - C * (1 + fd)))
+
+
 def _loop_ref(P, Ghat, qinv, p, h, b, mu_v, valid, row_mask, z, s, lam, nu,
-              *, C, max_iter, tol, consts, not_improved_lim, stall_rtol):
-    """Plain torch transcription of the kernel's loop, vectorized over B."""
+              *, C, fd, rot, max_iter, tol, consts, not_improved_lim,
+              stall_rtol):
+    """Plain torch transcription of the kernel's loop, vectorized over B;
+    ``rot`` picks the variant."""
     B, n = p.shape
     q = b.shape[-1]
-    mg = 3 * C
+    mg = C * (1 + fd)
+    kq = 2 * C if rot else mg          # first equality row of the K system
     dt, dev = p.dtype, p.device
     tiny = torch.tensor(consts["tiny"], dtype=dt, device=dev)
     reg = consts["reg"]
     qd = 1.0 / qinv
     rmask = row_mask > 0
     rcount = torch.clamp(row_mask.sum(-1), min=1.0)
-    cone = ConeF(mu_v, valid, 2)
+    cone = ConeF(mu_v, valid, fd)
 
     def measures(z, s, lam, nu):
-        lam_v = (lam[:, C:2 * C] - lam[:, 2 * C:3 * C]) / _SQ2
-        lam_k = torch.cat([lam[:, :C], lam_v, nu], dim=-1)
+        if rot:
+            lam_v = (lam[:, C:2 * C] - lam[:, 2 * C:3 * C]) / _SQ2
+            lam_k = torch.cat([lam[:, :C], lam_v, nu], dim=-1)
+        else:
+            lam_k = torch.cat([lam[:, :mg], nu], dim=-1)
         rx = qd * z + p + torch.einsum("bkn,bk->bn", Ghat, lam_k)
         y = torch.einsum("bkn,bn->bk", Ghat, z)
-        gf1 = y[:, C:2 * C] / _SQ2
+        if rot:
+            gf1 = y[:, C:2 * C] / _SQ2
+            gz = torch.cat([y[:, :C], gf1, -gf1], -1)
+        else:
+            gz = y[:, :mg]
         Flam = cone.matvec(lam)
-        rz = torch.cat([torch.cat([y[:, :C], gf1, -gf1], -1) + Flam[:, :mg],
-                        Flam[:, mg:]], -1) + s - h
-        ry = y[:, 2 * C:] - b
+        rz = torch.cat([gz + Flam[:, :mg], Flam[:, mg:]], -1) + s - h
+        ry = y[:, kq:] - b
         mu_c = torch.where(rmask, s * lam, 0.0).sum(-1) / rcount
         resid = torch.maximum(rx.abs().amax(-1),
                               torch.where(rmask, rz.abs(), 0.0).amax(-1))
@@ -149,25 +219,38 @@ def _loop_ref(P, Ghat, qinv, p, h, b, mu_v, valid, row_mask, z, s, lam, nu,
         new_done = done | (merit < tol) | stalled
         iters = torch.where(new_done & ~done, it, iters)
 
-        # rotated Schur system and its Gauss-Jordan explicit inverse
+        # Schur system and its Gauss-Jordan explicit inverse
         lam_safe = torch.maximum(lam, tiny)
         d_inv = torch.clamp(s / lam_safe, consts["dinv_min"],
                             consts["dinv_max"])
-        rs = rot_schur(P, d_inv, mu_v, valid, C, reg)
+        if rot:
+            rs = rot_schur(P, d_inv, mu_v, valid, C, reg)
+            apply_S = lambda x: (
+                -torch.einsum("bij,bj->bi", P, x) - rs.dmain * x
+                + torch.nn.functional.pad(rs.bn * x[:, :C], (C, q)))
+        else:
+            rs = unrot_schur(P, d_inv, mu_v, valid, C, fd, reg)
+            apply_S = lambda x: unrot_apply(rs, P, x, C, fd)
         S = gj_inv_ref(rs.S)
 
         def solve_S(rhs):
             x = torch.einsum("bij,bj->bi", S, rhs)
-            ax = (-torch.einsum("bij,bj->bi", P, x) - rs.dmain * x
-                  + torch.nn.functional.pad(rs.bn * x[:, :C], (C, q)))
-            return x + torch.einsum("bij,bj->bi", S, rhs - ax)
+            return x + torch.einsum("bij,bj->bi", S, rhs - apply_S(x))
 
         y1 = torch.einsum("bkn,bn->bk", Ghat, qinv * -rx)
 
         def kkt_solve(r2m):
-            """Rotated KKT solve for rhs [-rx; r2m; -ry]."""
+            """KKT solve for rhs [-rx; r2m; -ry]: (wk, dlam)."""
             tg = r2m[:, mg:]
             tD = rs.Dginv * tg
+            if not rot:
+                skg = torch.cat([torch.zeros_like(tD)]
+                                + [-valid * tD] * fd, -1)
+                tk = torch.cat([r2m[:, :mg], -ry], -1) - y1
+                wk = solve_S(tk + torch.nn.functional.pad(skg, (0, q)))
+                wf = sum(wk[:, C * (1 + d):C * (2 + d)] for d in range(fd))
+                wg = -rs.Dginv * (tg - (-mu_v * wk[:, :C] + valid * wf))
+                return wk, torch.cat([wk[:, :mg], wg], -1)
             ru = (r2m[:, C:2 * C] + r2m[:, 2 * C:3 * C]) / _SQ2
             rv = (r2m[:, C:2 * C] - r2m[:, 2 * C:3 * C]) / _SQ2
             t_u = ru - _SQ2 * valid * tD
@@ -197,7 +280,7 @@ def _loop_ref(P, Ghat, qinv, p, h, b, mu_v, valid, row_mask, z, s, lam, nu,
         r4c = s * lam + ds_a * dlam_a - (sigma * mu_c)[:, None]
         wk, dlam = kkt_solve(-rz + r4c / lam_safe)
         dz = qinv * (-rx - torch.einsum("bkn,bk->bn", Ghat, wk))
-        dnu = wk[:, 2 * C:]
+        dnu = wk[:, kq:]
         ds = -r4c / lam_safe - d_inv * dlam
         alpha = (0.99 * torch.minimum(max_step(s, ds),
                                       max_step(lam, dlam)))[:, None]
@@ -230,16 +313,23 @@ def _lib():
         P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
         for ct in ("f32", "f64"):
             f = getattr(lib, f"lcp_fused_ipm_{ct}")
-            f.argtypes = [P] * 20 + [I] * 6 + [D] * 5 + [I, D, I, P]
+            f.argtypes = [P] * 20 + [I] * 8 + [D] * 5 + [I, D, I, P]
             f.restype = I
         f = lib.lcp_fused_ipm_smem_bytes
-        f.argtypes, f.restype = [I] * 6, ctypes.c_longlong
+        f.argtypes, f.restype = [I] * 8, ctypes.c_longlong
         lib._lcp_typed = True
     return lib
 
 
+def smem_bytes(n, m, q, C, fd, rot, itemsize, ghat_smem):
+    """Shared memory of one world in the kernel (its own count)."""
+    return int(_lib().lcp_fused_ipm_smem_bytes(n, m, q, C, fd, int(rot),
+                                               int(itemsize == 8),
+                                               int(ghat_smem)))
+
+
 def _loop_cuda(P, Ghat, qinv, p, h, b, mu_v, valid, row_mask, z0, s0, lam0,
-               nu0, *, C, max_iter, tol, consts, not_improved_lim,
+               nu0, *, C, fd, rot, max_iter, tol, consts, not_improved_lim,
                stall_rtol):
     ins = [P, Ghat, qinv, p, h, b, mu_v, valid, row_mask, z0, s0, lam0, nu0]
     ins = [x.contiguous() for x in ins]
@@ -250,57 +340,57 @@ def _loop_cuda(P, Ghat, qinv, p, h, b, mu_v, valid, row_mask, z0, s0, lam0,
         raise ValueError("fused IPM operands differ in dtype or device")
     B, n = p.shape
     m, q = h.shape[-1], b.shape[-1]
-    K = 2 * C + q
+    K = 2 * C + q if rot else C * (1 + fd) + q
     want = [(B, K, K), (B, K, n), (B, n), (B, n), (B, m), (B, q), (B, C),
             (B, C), (B, m), (B, n), (B, m), (B, m), (B, q)]
-    if m != 4 * C or any(tuple(x.shape) != w for x, w in zip(ins, want)):
+    if (m != C * (2 + fd) or (rot and fd != 2)
+            or any(tuple(x.shape) != w for x, w in zip(ins, want))):
         raise ValueError(
             "fused IPM operand shapes "
             f"{[tuple(x.shape) for x in ins]} do not fit B={B}, n={n}, "
-            f"C={C}, q={q} with m = 4C rows")
+            f"C={C}, fd={fd}, q={q}, rot={rot} with m = (2 + fd)C rows")
     lib = _lib()
-    f64 = int(dt == torch.float64)
-    need = lib.lcp_fused_ipm_smem_bytes(n, m, q, C, f64, 0)
+    need = smem_bytes(n, m, q, C, fd, rot, p.element_size(), 0)
     if need > SMEM_LIMIT:
         raise ValueError(
             f"fused IPM needs {need} B of shared memory per world "
-            f"(n={n}, m={m}, q={q}, C={C}); the limit is {SMEM_LIMIT}")
+            f"(n={n}, m={m}, q={q}, C={C}, K={K}); the limit is "
+            f"{SMEM_LIMIT}")
     # Ghat (K x n) joins the world's shared memory when it fits
-    ghat_smem = int(lib.lcp_fused_ipm_smem_bytes(n, m, q, C, f64, 1)
+    ghat_smem = int(smem_bytes(n, m, q, C, fd, rot, p.element_size(), 1)
                     <= SMEM_LIMIT)
     empty = lambda *shape: torch.empty(shape, dtype=dt, device=dev)
     z, s, lam, nu = empty(B, n), empty(B, m), empty(B, m), empty(B, q)
     mu_c, resid = empty(B), empty(B)
     iters = torch.empty(B, dtype=torch.int32, device=dev)
     outs = [z, s, lam, nu, mu_c, resid, iters]
+    f64 = dt == torch.float64
     rc = getattr(lib, "lcp_fused_ipm_" + ("f64" if f64 else "f32"))(
-        *[_build.ptr(x) for x in ins + outs], B, n, m, q, C, int(max_iter),
-        float(tol), float(consts["tiny"]), float(consts["reg"]),
-        float(consts["dinv_min"]), float(consts["dinv_max"]),
-        int(not_improved_lim), float(stall_rtol), ghat_smem,
-        _build.stream_ptr(lib, dev))
+        *[_build.ptr(x) for x in ins + outs], B, n, m, q, C, fd, int(rot),
+        int(max_iter), float(tol), float(consts["tiny"]),
+        float(consts["reg"]), float(consts["dinv_min"]),
+        float(consts["dinv_max"]), int(not_improved_lim), float(stall_rtol),
+        ghat_smem, _build.stream_ptr(lib, dev))
     _build.check(lib, rc, "fused_ipm")
-    LAUNCHES["fused_ipm"] += 1
+    LAUNCHES["fused_ipm" if rot else "fused_ipm_unrot"] += 1
     return z, s, lam, nu, mu_c, resid, iters
 
 
 def _fused(loop, operands, p, h, b, mu_v, valid, row_mask, z0, s0, lam0,
            nu0, *, C, fd, max_iter, tol, consts, not_improved_lim=0,
            fric_pair=False, stall_rtol=0.0):
-    if not (fric_pair and fd == 2):
-        raise NotImplementedError(
-            "ROADMAP B2b: the unrotated fused IPM (K = (1 + fd)C + q) is "
-            "not ported yet; pass fric_pair=True for the rotated one")
     return loop(*operands, p, h, b, mu_v, valid, row_mask, z0, s0, lam0,
-                nu0, C=C, max_iter=max_iter, tol=tol, consts=consts,
+                nu0, C=C, fd=fd, rot=bool(fric_pair) and fd == 2,
+                max_iter=max_iter, tol=tol, consts=consts,
                 not_improved_lim=not_improved_lim, stall_rtol=stall_rtol)
 
 
 def fused_ipm(operands, p, h, b, mu_v, valid, row_mask, z0, s0, lam0, nu0,
               **kw):
     """Run the fused IPM loop from (z0, s0, lam0, nu0).  ``operands`` is
-    ``rot_operands(q_diag, G, A, C)``, the other inputs in the solver's
-    (B, ...) layout; the gamma rows of G must be zero and, with
+    ``rot_operands(q_diag, G, A, C)`` with ``fric_pair`` (and fd = 2),
+    ``unrot_operands(q_diag, G, A, C)`` otherwise; the other inputs in the
+    solver's (B, ...) layout.  The gamma rows of G must be zero and, with
     ``fric_pair``, the two friction rows per contact exact negatives.
     Keywords: C, fd, max_iter, tol, consts, not_improved_lim=0,
     fric_pair=False, stall_rtol=0.0.  Returns (z, s, lam, nu, mu, resid,

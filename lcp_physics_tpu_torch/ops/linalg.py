@@ -24,7 +24,10 @@ with the JAX package's boundary:
   block-Schur identity (:class:`InvFactor`), each solve one batched
   matvec — the interior-point solver's factor when it refines its solves.
 
-``plu_factor`` / ``plu_solve`` route by size.  Each kernel wrapper
+``plu_factor`` / ``plu_solve`` route by size.  ``xla_factor`` is the
+row-pivoted library LU (``torch.linalg.lu_factor``), the JAX package's
+``backend='xla'``; the solver takes it only when the caller names that
+backend, and ``plu_solve`` solves with it as with the others.  Each kernel wrapper
 dispatches on the device of its tensors: on a CUDA tensor it launches the
 hand-written kernel (and raises if that fails); on a CPU tensor it runs
 the plain torch version of the same algorithm (the ``*_ref`` functions).
@@ -64,9 +67,9 @@ def blocked_path(n):
     """Whether an n-row system takes the blocked factor (the JAX package's
     ``_ru(n, 8) > MAX_LANE_N`` rule); past ``MAX_BLOCKED_N`` it raises."""
     if n > MAX_BLOCKED_N:
-        raise NotImplementedError(
-            f"ROADMAP A3: n={n} > MAX_BLOCKED_N={MAX_BLOCKED_N} needs the "
-            "pivoted 'xla' LU, not ported yet")
+        raise ValueError(
+            f"n={n} > MAX_BLOCKED_N={MAX_BLOCKED_N}: pass backend='xla' for "
+            "the pivoted library LU")
     return _ru(n, 8) > MAX_LANE_N
 
 
@@ -449,6 +452,21 @@ def _inv_solve(fac, r, trans=0):
     return torch.einsum(eq, inv, rp)[:, :n]
 
 
+class PivotedLU(NamedTuple):
+    """Row-pivoted LU of K (B, n, n) from ``torch.linalg.lu_factor``."""
+
+    lu: torch.Tensor
+    pivots: torch.Tensor
+
+
+def xla_factor(K):
+    """Row-pivoted LU of K (B, n, n) by the library (``torch.linalg.
+    lu_factor``): the JAX package's ``backend='xla'``, which is XLA's LU
+    and not a TPU kernel.  Taken only when the caller names that
+    backend."""
+    return PivotedLU(*torch.linalg.lu_factor(K))
+
+
 def plu_factor(K, exact=False):
     """Pivotless LU of K (B, n, n): the lane factor (a (B, n, n) tensor)
     for n <= MAX_LANE_N, the blocked factor (:class:`BlockedFactor`) up to
@@ -464,11 +482,14 @@ def plu_factor(K, exact=False):
 
 def plu_solve(fac, r, trans=0):
     """Solve K x = r (trans=0) or K^T x = r (trans=1) from
-    :func:`plu_factor`'s, :func:`plu_factor_blocks`' or
-    :func:`inv_factor_blocks`' result; r (B, n)."""
+    :func:`plu_factor`'s, :func:`plu_factor_blocks`',
+    :func:`inv_factor_blocks`' or :func:`xla_factor`'s result; r (B, n)."""
     if trans not in (0, 1):
         raise ValueError(f"trans must be 0 or 1, got {trans}")
     B, n = r.shape
+    if isinstance(fac, PivotedLU):
+        return torch.linalg.lu_solve(fac.lu, fac.pivots, r[..., None],
+                                     adjoint=bool(trans))[..., 0]
     if isinstance(fac, (BlockedFactor, InvFactor)):
         Bf = (fac.binv if isinstance(fac, BlockedFactor) else fac.inv).shape[0]
         if fac.n != n or Bf != B:

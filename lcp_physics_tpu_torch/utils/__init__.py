@@ -42,7 +42,8 @@ class SimConfig:
     * ``lcp_backend``: the port dispatches each kernel by the device of its
       tensors (CUDA kernel on a GPU tensor, plain torch on a CPU tensor).
       ``"auto"``, ``"fused"`` and ``"pallas"`` all mean that; ``"xla"``
-      (the unfused pivoted-LU loop) is not ported yet (ROADMAP A3).
+      is the unfused loop over the row-pivoted library LU
+      (``torch.linalg.lu_factor``), taken only when asked for.
     * ``solver_factor_precision='highest'`` (or ``'float32'``) does what it
       does in the JAX package: at float32 the blocked KKT factor inverts
       its panels with the exact scalar Gauss-Jordan kernel in place of the
@@ -62,8 +63,11 @@ class SimConfig:
       the structured system; elsewhere ``solver_refine`` steps against the
       assembled one.  Like the JAX package's dispatch, it keeps the solve
       out of the fused whole-IPM kernel.
-    * ``post_stabilization``, ``penetration_backtrack`` (ROADMAP A6) and
-      ``solver_gondzio`` (ROADMAP A3) raise until they are ported.
+    * ``solver_gondzio`` > 0 adds the Gondzio correctors to the unfused
+      loop and, as in the JAX package, keeps the solve out of the fused
+      kernels.
+    * ``post_stabilization`` and ``penetration_backtrack`` (ROADMAP A6)
+      raise until they are ported.
       ``hull_pair_budget`` only acts on hull pairs, which the port's
       narrowphase does not take yet (ROADMAP A5).
     """

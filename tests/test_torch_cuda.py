@@ -81,6 +81,42 @@ def test_fused_ipm_kernel_matches_plain_f64(dev, C, q):
     assert torch.equal(got[6], ref[6])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("C,q,fd", [(4, 0, 2), (4, 3, 2), (16, 0, 2),
+                                    (16, 0, 1), (12, 3, 1)])
+def test_fused_ipm_unrot_kernel_matches_plain(dev, C, q, fd, dtype):
+    """The unrotated kernel (K = (1 + fd)C + q, up to 48) against its plain
+    loop on instances without the +- pair, 130 worlds: runs capped at 3
+    iterations per world (f64 1e-8, f32 1e-3), and at f64 a full run with
+    the same iterations and z, lam within 1e-8."""
+    rng = np.random.default_rng(7 + C + q + fd)
+    qd, p, G, h, A, b, mu, valid, rmask = (
+        torch.tensor(x, dtype=dtype, device=dev)
+        for x in engine_instance(rng, 130, 24, C, q, pair=False, fd=fd))
+    consts = _dtype_consts(dtype)
+    ops = ipm.unrot_operands(qd, G, A, C)
+    x0 = initial_point(ops, p, h, b, ConeF(mu, valid, fd), rmask, consts,
+                       fric_pair=False)
+    args = (ops, p, h, b, mu, valid, rmask, *x0)
+    base = dict(C=C, fd=fd, consts=consts, fric_pair=False)
+    runs = [(dict(max_iter=3, tol=0.0, not_improved_lim=0),
+             1e-8 if dtype == torch.float64 else 1e-3)]
+    if dtype == torch.float64:
+        runs.append((dict(max_iter=25, tol=1e-8, not_improved_lim=3), 1e-8))
+    for kw, lim in runs:
+        before = dict(ipm.LAUNCHES)
+        got = ipm.fused_ipm(*args, **base, **kw)
+        ref = ipm.fused_ipm_ref(*args, **base, **kw)
+        assert ipm.LAUNCHES == dict(before, fused_ipm_unrot=before[
+            "fused_ipm_unrot"] + 1)
+        assert torch.equal(got[6], ref[6])
+        for g, r in zip(got[:4], ref[:4]):
+            if g.shape[-1]:   # per-world ||g - r||_inf / ||r||_inf
+                err = (g - r).abs().amax(-1) / r.abs().amax(-1).clamp_min(
+                    1e-300)
+                assert float(err.max()) <= lim
+
+
 def check_residual(K, X, Xr):
     """||K X - I||_inf of the kernel's inverses at most GJ_RES_RATIO times
     the plain version's, in the largest and the median matrix."""

@@ -99,12 +99,14 @@ def test_lcp_solve_full_and_dispatch_rules():
                           (54, 0, 18, False), (0, 0, 0, True)]:
         assert ipm.fused_supported(mg, q, Cc, 2, fric_pair=fp) == \
             jax_fused_supported(mg, q, Cc, 2, fric_pair=fp)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lcp_solve_full(tq, tp, tG, th, None, None, tF, gamma_rows=C,
-                       row_mask=trm, q_is_diag=True, fric_pair=False)
-    # refine > 0 runs outside the fused kernel (tests/test_torch_refine.py);
-    # gondzio is not ported
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lcp_solve_full(tq, tp, tG, th, None, None, tF, gamma_rows=C,
-                       row_mask=trm, q_is_diag=True, fric_pair=True,
-                       gondzio=1)
+    # Once raised: fric_pair=False now takes the unrotated kernel (K = 9)
+    # and gondzio the unfused loop, as in the JAX package.  (refine > 0
+    # runs outside the fused kernel: tests/test_torch_refine.py.)
+    for opts in (dict(fric_pair=False), dict(fric_pair=True, gondzio=1)):
+        kw = dict(max_iter=20, tol=1e-10, q_is_diag=True, gamma_rows=C,
+                  not_improved_lim=3, **opts)
+        ref = jax_pdipm_solve(qd, p, G, h, A, b, F, backend="fused",
+                              row_mask=rmask, **kw)
+        got = lcp_solve_full(tq, tp, tG, th, None, None, tF, row_mask=trm,
+                             **kw)
+        check_solution(got, ref)

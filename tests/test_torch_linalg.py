@@ -42,10 +42,17 @@ def test_safe_inv_guards_tiny_pivots():
 
 def test_larger_systems_raise():
     """Past MAX_LANE_N the blocked factor takes over; past MAX_BLOCKED_N
-    (the JAX package's pivoted 'xla' fallback) the port raises."""
+    (where the JAX package falls back to its pivoted 'xla' LU) the
+    pivotless factor raises and names backend='xla', the pivoted library
+    LU the caller may ask for instead."""
     K = torch.eye(90, dtype=torch.float64).expand(2, 90, 90)
     assert isinstance(linalg.plu_factor(K), linalg.BlockedFactor)
     n = linalg.MAX_BLOCKED_N + 1
     K = torch.eye(n, dtype=torch.float64).expand(2, n, n)
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
+    with pytest.raises(ValueError, match="backend='xla'"):
         linalg.plu_factor(K)
+    r = torch.arange(2.0 * n, dtype=torch.float64).reshape(2, n)
+    fac = linalg.xla_factor(K)
+    assert isinstance(fac, linalg.PivotedLU)
+    for trans in (0, 1):
+        assert torch.equal(linalg.plu_solve(fac, r, trans), r)

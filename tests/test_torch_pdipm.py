@@ -117,16 +117,24 @@ def test_unfused_loop_matches_jax(C, q, n, seed):
                  got.s.numpy() - np.asarray(h)), 0.0)
 
 
-def test_unported_loop_options_raise():
+@pytest.mark.parametrize("opts", [dict(fric_pair=True, gondzio=1),
+                                  dict(fric_pair=True, max_iter=0),
+                                  dict(fric_pair=False)],
+                         ids=["gondzio", "max_iter0", "unrotated"])
+def test_unported_loop_options_raise(opts):
+    """These options once raised NotImplementedError; each now runs and
+    matches the JAX package per world within 1e-10 on runs capped at 4
+    iterations (tol=0, not_improved_lim=0): one Gondzio corrector on the
+    rotated factor (K2 = 60, lane LU), max_iter=0 (the start point through
+    the best-iterate tail) and the unrotated gamma factor (K = 90, one
+    blocked panel)."""
+    from test_torch_pdipm_capped import check_capped
     rng = np.random.default_rng(5)
     B, n, C = 2, 8, 30
     qd, p, G, h, A, b, F, rmask = engine_instance(rng, B, n, C, pair=True)
-    tq, tp, tG, th, trm, tmu, tv = to_port(qd, p, G, h, rmask, F.mu,
-                                           F.valid)
-    tF = ConeF(tmu, tv, 2)
-    base = dict(gamma_rows=C, q_is_diag=True, row_mask=trm)
-    for bad in (dict(fric_pair=True, gondzio=1),
-                dict(fric_pair=True, max_iter=0),
-                dict(fric_pair=False)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-            lcp_solve_full(tq, tp, tG, th, None, None, tF, **base, **bad)
+    kw = dict(dict(max_iter=4, tol=0.0, not_improved_lim=0, gamma_rows=C,
+                   q_is_diag=True), **opts)
+    before = dict(linalg.LAUNCHES, **ipm.LAUNCHES)
+    got, ref = solve_both(qd, p, G, h, None, None, F, rmask, jit=True, **kw)
+    check_capped(got, ref, kw["max_iter"])
+    assert dict(linalg.LAUNCHES, **ipm.LAUNCHES) == before   # CPU: plain

@@ -173,14 +173,13 @@ def test_cpu_tensors_run_the_plain_versions():
     assert int(diag.n_contacts.sum()) > 0
     assert dict(linalg.LAUNCHES, **ipm.LAUNCHES) == before == {
         "lu": 0, "solve": 0, "solve_t": 0, "gj_inv_blocked": 0, "gj_inv": 0,
-        "fused_ipm": 0}
+        "fused_ipm": 0, "fused_ipm_unrot": 0}
 
 
 def test_unported_options_raise():
     static = make_scene_static([1] * N, c_max=C)
     for cfg in (SimConfig(post_stabilization=True),
-                SimConfig(penetration_backtrack=True),
-                SimConfig(lcp_backend="xla")):
+                SimConfig(penetration_backtrack=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             make_batched_step(static, cfg)
     hull_static = make_scene_static([1, 4], c_max=4)
@@ -194,6 +193,35 @@ def test_unported_options_raise():
                        torch.zeros(1, 2, 3, **F64), torch.zeros(1, **F64))
     with pytest.raises(NotImplementedError, match="ROADMAP A5"):
         step(params, state, DT)
+
+
+@pytest.mark.parametrize("cfg,jax_backend", [
+    (dict(lcp_backend="xla"), "xla"), (dict(solver_gondzio=1), "pallas")],
+    ids=["xla", "gondzio"])
+def test_step_options_match_jax(cfg, jax_backend, monkeypatch):
+    """Two steps of the benchmark scene (B = 8) with SimConfig
+    (lcp_backend="xla") — the pivoted library LU and the unfused loop —
+    and with solver_gondzio=1 — one Gondzio corrector per iteration in the
+    unfused loop, against the JAX step with the same option
+    (lcp_backend="pallas" for gondzio: the port's pivotless factor).
+    Neither may reach the fused kernel, as in the JAX package."""
+    from lcp_physics_tpu_torch.ops import ipm
+    monkeypatch.setattr(ipm, "fused_ipm", None)   # any call would raise
+    p, v = slice_scene(8)
+    static, params, state = jax_scene(p, v)
+    jcfg = dict(cfg, lcp_backend=jax_backend)
+    jstep = jax_batched_step(static, JaxSimConfig(
+        max_iter=15, solver_eps=1e-6, **jcfg))
+    _, jtraj = jax.jit(lambda pr, s: jax_rollout(jstep, pr, s, DT, 2))(
+        params, state)
+    step = make_batched_step(make_scene_static([1] * N, c_max=C),
+                             SimConfig(max_iter=15, solver_eps=1e-6, **cfg))
+    _, traj = rollout(step, params_from_numpy(params, **F64),
+                      state_from_numpy(state, **F64), DT, 2)
+    for k in ("p", "v"):
+        np.testing.assert_allclose(getattr(traj, k).numpy(),
+                                   np.asarray(getattr(jtraj, k)), rtol=1e-8,
+                                   atol=1e-8, err_msg=k)
 
 
 def test_lcp_solve_backward_raises():
