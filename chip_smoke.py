@@ -11,9 +11,13 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    and unrotated (K3u, instances without the +- friction pair, fd 2 and
    1), blocked and scalar Gauss-Jordan panel inverse, fused IPM
    iteration) against its plain torch version on the card, float32 and
-   float64, with CUDA-event timings (median of 20) of kernel, plain
-   version and library call; the panel inverses also by ||K X - I||
-   against the plain version's own.
+   float64, at every bucket edge of the fused kernel (K = 16, 17, 24, 25,
+   32, 33, 48) and on a ragged batch, with device times of kernel, plain
+   version and library call (``cuda_ms``: CUDA events around back-to-back
+   calls queued behind a sleep kernel, median of three windows); the panel inverses also by ||K X - I||
+   against the plain version's own, at B = 1 and 257 too.  With
+   ``--parent DIR`` (a checkout of an earlier commit), the seven kernels
+   of DIR and of this tree timed in turns by ``tools/time_kernels.py``.
 3. The forward slice: the batched 8-circle contact rollout of the LCP
    benchmark scene (B = 4096 worlds, c_max = 8, dt = 0.01,
    SimConfig(max_iter=15, solver_eps=1e-6), float32, 20 steps) through
@@ -113,19 +117,39 @@ def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def cuda_ms(torch, fn, reps=20):
-    """Median CUDA-event time of fn() in ms, after one warm-up call."""
+def cuda_ms(torch, fn, runs=3, calls=20, window_ms=1.0):
+    """Device time of one fn() call in ms: after a warm-up, CUDA events
+    around ``calls`` back-to-back calls (more if needed to pass
+    ``window_ms``), divided by the count; the median of ``runs`` such
+    windows.  Each window follows a sleep kernel long enough for the host
+    to enqueue the whole window, so the card runs the calls back to back
+    and the wrapper's host work stays out of the time (a function that
+    waits on the card itself, as the plain loops do, is timed with its
+    host work)."""
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    calls = max(calls, int(np.ceil(window_ms / max(a.elapsed_time(b), 1e-3))))
+    # ~2e9 cycles per second; at most 50 ms of sleep
+    sleep = int(min(2e9 * 1.5 * calls * host_s, 1e8))
     times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
+    for _ in range(runs):
+        torch.cuda._sleep(sleep)
         a.record()
-        fn()
+        for _ in range(calls):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / calls)
     return float(np.median(times))
 
 
@@ -315,6 +339,11 @@ def phase_gj(torch, dev):
                 + (["gj_inv"] if P == 128 else [])
             for name in names:
                 hold_gj(torch, name, *kinds[name], K)
+    for P in (16, 48, 64, 128):      # K4's edges: one panel, a ragged grid
+        for Bp in (1, 257):
+            K = torch.tensor(kkt_batch(rng, Bp, P), dtype=torch.float32,
+                             device=dev)
+            hold_gj(torch, "gj_inv_blocked", *kinds["gj_inv_blocked"], K)
     out = {}
     for name, Bp, P, dt in (("gj_inv_blocked", TRAIN_B, 64, torch.float32),
                             ("gj_inv", TRAIN_B64, 128, torch.float64)):
@@ -373,13 +402,16 @@ def hold_full_f32(torch, tag, got, ref, pert):
 
 
 # (C, q, fd, dtypes) of the fused-kernel phase: the rotated variant (K3)
-# at K = 2C + q, the unrotated one (K3u) at K = (1 + fd)C + q
+# at K = 2C + q, the unrotated one (K3u) at K = (1 + fd)C + q, at and past
+# each of the kernel's buckets (16, 24, 32, 48); the path's shape first
 FUSED_SHAPES = {
     True: [(Cc, q, 2, ("float32", "float64"))
-           for Cc, q in ((8, 0), (8, 3), (16, 0), (16, 3), (24, 0))],
+           for Cc, q in ((8, 0), (8, 1), (8, 3), (12, 0), (12, 1), (16, 0),
+                         (16, 1), (16, 3), (24, 0))],
     False: [(Cc, q, 2, ("float32", "float64"))
-            for Cc, q in ((8, 0), (8, 3), (12, 0), (16, 0))]
-    + [(16, 0, 1, ("float64",))]}
+            for Cc, q in ((8, 0), (5, 1), (8, 1), (8, 3), (11, 0), (12, 0),
+                          (16, 0))]
+    + [(16, 0, 1, ("float64",)), (8, 1, 1, ("float64",))]}
 
 
 def phase_fused(torch, dev, rot=True):
@@ -409,6 +441,15 @@ def phase_fused(torch, dev, rot=True):
             K = 2 * Cc + q if rot else (1 + fd) * Cc + q
             tag = (f"{name} C={Cc} q={q} fd={fd} K={K} {str(dt)[6:]}")
             base = dict(C=Cc, fd=fd, consts=consts, fric_pair=rot)
+            KB, W, ghat = ipm.launch_shape(n, h.shape[1], q,
+                                           Cc, K, p.element_size())
+            need = ipm._lib().lcp_fused_ipm_smem_bytes(
+                n, h.shape[1], q, Cc, fd, int(rot), int(f64), KB, ghat)
+            check(ipm.smem_bytes(n, h.shape[1], q, Cc, K, KB,
+                                 p.element_size(), ghat) == need,
+                  f"{tag}: the wrapper's shared-memory count equals the "
+                  f"kernel's ({need} B per world, bucket {KB}, {W} worlds "
+                  f"per CTA, Ghat in shared memory: {bool(ghat)})")
 
             # Capped: no stopping rule fires, every world runs CAP_ITERS
             # iterations of the loop, still well conditioned -- per world.
@@ -423,6 +464,15 @@ def phase_fused(torch, dev, rot=True):
                   f"{float(ez.max()):.2e} (median {float(ez.median()):.2e}),"
                   f" lam {float(el.max()):.2e} vs plain (<= {lim:g}, "
                   f"median <= {lim / 100:g})")
+            # a ragged batch (no multiple of the worlds per CTA): its worlds
+            # give the batch's results bit for bit
+            Br = B - 3
+            cut = [tuple(x[:Br] for x in a) if isinstance(a, tuple)
+                   else a[:Br] for a in args]
+            part = ipm.fused_ipm(*cut, **cap)
+            check(all(torch.equal(g, r[:Br]) for g, r in zip(part, got)),
+                  f"{tag}, capped, the first {Br} worlds alone: the same "
+                  f"results bit for bit")
 
             # Full: the solver's own stopping rules.
             kw = dict(base, max_iter=25 if f64 else 15,
@@ -1391,8 +1441,28 @@ def phase_line(torch, dev, smi):
     return launches
 
 
+def phase_turns(parent, smi):
+    """The seven kernels of the checkout at ``parent`` and of this tree,
+    device time, in turns parent, this, this, parent
+    (tools/time_kernels.py, each tree in a process of its own)."""
+    res = subprocess.run([sys.executable, os.path.join(ROOT, "tools",
+                                                       "time_kernels.py"),
+                          "--turns", parent], capture_output=True, text=True)
+    check(res.returncode == 0, f"kernels of {parent} and of this tree timed "
+                               f"in turns{res.stderr[-2000:]}")
+    for line in res.stdout.strip().splitlines()[:-1]:
+        print(f"  {line}", flush=True)
+
+
 def main():
+    import argparse
     import torch
+    ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA "
+                                 "port on one NVIDIA GPU.")
+    ap.add_argument("--parent", metavar="DIR",
+                    help="a checkout of an earlier commit: also time its "
+                         "kernels and this tree's in turns")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1411,9 +1481,13 @@ def main():
     for k, s in stats.items():
         lib = ("none" if s["library_ms"] is None
                else f"{s['library_ms']:.3f} ms")
-        print(f"  {k}: {s['ms']:.3f} ms (plain {s['plain_ms']:.3f} ms, "
+        print(f"  {k}: {s['ms']:.4f} ms (plain {s['plain_ms']:.3f} ms, "
               f"library call {lib}, bound {s['bound_ms']:.4f} ms by "
-              f"{s['bound_by']}) at its path's shape", flush=True)
+              f"{s['bound_by']}) at its path's shape, device time", flush=True)
+    if args.parent:
+        print(f"== kernels of {args.parent} and of this tree in turns",
+              flush=True)
+        phase_turns(args.parent, smi)
     print("== forward slice: batched 8-circle contact rollout", flush=True)
     launches = phase_slice(torch, dev, smi)
     print("== training slice: dense 64-circle fwd+bwd", flush=True)

@@ -6,8 +6,8 @@ Schur system of at most ``MAX_FUSED_K`` rows, every Mehrotra iteration —
 residuals, Schur assembly, Gauss-Jordan explicit inverse, predictor and
 corrector solves with one refinement step each, ratio tests and masked
 updates, stall and best-iterate bookkeeping — runs inside
-``csrc/fused_ipm.cu``, one CTA per world.  Two variants, as in the JAX
-package:
+``csrc/fused_ipm.cu``, 16 or 32 lanes of a warp per world and several
+worlds per CTA (``launch_shape``).  Two variants, as in the JAX package:
 
 * rotated (``fric_pair=True``, fd = 2): the two friction rows of a contact
   are exact negatives, so the Schur system has K = 2C + q rows over
@@ -37,6 +37,8 @@ from lcp_physics_tpu_torch.ops.linalg import gj_inv_ref
 MAX_FUSED_K = 48
 LAUNCHES = {"fused_ipm": 0, "fused_ipm_unrot": 0}
 SMEM_LIMIT = 232448  # bytes of shared memory one CTA may use on Hopper
+FUSED_BUCKETS = (16, 24, 32, 48)   # the kernel's compile-time Schur sizes
+CTA_THREADS = 128
 
 _SQ2 = math.sqrt(2.0)
 
@@ -313,19 +315,58 @@ def _lib():
         P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
         for ct in ("f32", "f64"):
             f = getattr(lib, f"lcp_fused_ipm_{ct}")
-            f.argtypes = [P] * 20 + [I] * 8 + [D] * 5 + [I, D, I, P]
+            f.argtypes = [P] * 20 + [I] * 8 + [D] * 5 + [I, D, I, I, I, P]
             f.restype = I
         f = lib.lcp_fused_ipm_smem_bytes
-        f.argtypes, f.restype = [I] * 8, ctypes.c_longlong
+        f.argtypes, f.restype = [I] * 9, ctypes.c_longlong
         lib._lcp_typed = True
     return lib
 
 
-def smem_bytes(n, m, q, C, fd, rot, itemsize, ghat_smem):
-    """Shared memory of one world in the kernel (its own count)."""
-    return int(_lib().lcp_fused_ipm_smem_bytes(n, m, q, C, fd, int(rot),
-                                               int(itemsize == 8),
-                                               int(ghat_smem)))
+def fused_bucket(K):
+    """The kernel's compile-time Schur size for a K-row system: the least
+    of ``FUSED_BUCKETS`` that holds it (rows past K are identity rows)."""
+    for kb in FUSED_BUCKETS:
+        if K <= kb:
+            return kb
+    raise ValueError(f"the fused IPM kernel takes K <= {FUSED_BUCKETS[-1]}, "
+                     f"got {K}")
+
+
+def world_lanes(KB):
+    """Lanes of a warp that one world takes in bucket KB."""
+    return 16 if KB == 16 else 32
+
+
+def smem_bytes(n, m, q, C, K, KB, itemsize, ghat_smem):
+    """Shared memory of one world in bucket KB: the arrays that ``carve``
+    in csrc/fused_ipm.cu lays out, each rounded up to 16 bytes -- P at row
+    stride KB + 16 bytes, Ghat at row stride n | 1 when ``ghat_smem``, 6
+    n-, 13 m-, 5 q-, 9 C- and 7 KB-vectors."""
+    v = 16 // itemsize
+    ru = lambda c: -(-c // v) * v
+    elems = (ru(K * (KB + v)) + (ru(K * (n | 1)) if ghat_smem else 0)
+             + 6 * ru(n) + 13 * ru(m) + 5 * ru(max(q, 1)) + 9 * ru(C)
+             + 7 * ru(KB))
+    return elems * itemsize
+
+
+def launch_shape(n, m, q, C, K, itemsize):
+    """(KB, W, ghat_smem) of a launch: the bucket, the worlds per CTA (up
+    to CTA_THREADS threads at ``world_lanes(KB)`` lanes a world, as many
+    as SMEM_LIMIT holds) and whether Ghat sits in shared memory (when one
+    world fits with it)."""
+    KB = fused_bucket(K)
+    most = CTA_THREADS // world_lanes(KB)
+    for ghat in (1, 0):
+        W = min(most, SMEM_LIMIT // smem_bytes(n, m, q, C, K, KB, itemsize,
+                                               ghat))
+        if W >= 1:
+            return KB, W, ghat
+    raise ValueError(
+        f"fused IPM needs {smem_bytes(n, m, q, C, K, KB, itemsize, 0)} B of "
+        f"shared memory per world (n={n}, m={m}, q={q}, C={C}, K={K}); the "
+        f"limit is {SMEM_LIMIT}")
 
 
 def _loop_cuda(P, Ghat, qinv, p, h, b, mu_v, valid, row_mask, z0, s0, lam0,
@@ -349,16 +390,8 @@ def _loop_cuda(P, Ghat, qinv, p, h, b, mu_v, valid, row_mask, z0, s0, lam0,
             "fused IPM operand shapes "
             f"{[tuple(x.shape) for x in ins]} do not fit B={B}, n={n}, "
             f"C={C}, fd={fd}, q={q}, rot={rot} with m = (2 + fd)C rows")
+    KB, W, ghat_smem = launch_shape(n, m, q, C, K, p.element_size())
     lib = _lib()
-    need = smem_bytes(n, m, q, C, fd, rot, p.element_size(), 0)
-    if need > SMEM_LIMIT:
-        raise ValueError(
-            f"fused IPM needs {need} B of shared memory per world "
-            f"(n={n}, m={m}, q={q}, C={C}, K={K}); the limit is "
-            f"{SMEM_LIMIT}")
-    # Ghat (K x n) joins the world's shared memory when it fits
-    ghat_smem = int(smem_bytes(n, m, q, C, fd, rot, p.element_size(), 1)
-                    <= SMEM_LIMIT)
     empty = lambda *shape: torch.empty(shape, dtype=dt, device=dev)
     z, s, lam, nu = empty(B, n), empty(B, m), empty(B, m), empty(B, q)
     mu_c, resid = empty(B), empty(B)
@@ -370,7 +403,7 @@ def _loop_cuda(P, Ghat, qinv, p, h, b, mu_v, valid, row_mask, z0, s0, lam0,
         int(max_iter), float(tol), float(consts["tiny"]),
         float(consts["reg"]), float(consts["dinv_min"]),
         float(consts["dinv_max"]), int(not_improved_lim), float(stall_rtol),
-        ghat_smem, _build.stream_ptr(lib, dev))
+        ghat_smem, KB, W, _build.stream_ptr(lib, dev))
     _build.check(lib, rc, "fused_ipm")
     LAUNCHES["fused_ipm" if rot else "fused_ipm_unrot"] += 1
     return z, s, lam, nu, mu_c, resid, iters

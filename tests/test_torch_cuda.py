@@ -117,6 +117,114 @@ def test_fused_ipm_unrot_kernel_matches_plain(dev, C, q, fd, dtype):
                 assert float(err.max()) <= lim
 
 
+def fused_case(dev, rot, C, q, fd, B, dtype, seed):
+    """(args, base keywords) of fused_ipm on B engine instances: with the
+    +- friction pair when ``rot``, else fd independent friction rows."""
+    rng = np.random.default_rng(seed)
+    qd, p, G, h, A, b, mu, valid, rmask = (
+        torch.tensor(x, dtype=dtype, device=dev)
+        for x in engine_instance(rng, B, 24, C, q, pair=rot, fd=fd))
+    consts = _dtype_consts(dtype)
+    ops = (ipm.rot_operands if rot else ipm.unrot_operands)(qd, G, A, C)
+    x0 = initial_point(ops, p, h, b, ConeF(mu, valid, fd), rmask, consts,
+                       fric_pair=rot)
+    return ((ops, p, h, b, mu, valid, rmask, *x0),
+            dict(C=C, fd=fd, consts=consts, fric_pair=rot))
+
+
+def world_err(g, r):
+    """Largest per-world ||g - r||_inf / ||r||_inf."""
+    return float(((g - r).abs().amax(-1)
+                  / r.abs().amax(-1).clamp_min(1e-300)).max())
+
+
+# (rot, C, q, fd): K = 2C + q rotated, (1 + fd)C + q unrotated, at and just
+# past every bucket edge of the kernel (16, 24, 32, 48)
+BUCKET_EDGES = [(True, 8, 0, 2), (True, 8, 1, 2), (True, 12, 0, 2),
+                (True, 12, 1, 2), (True, 16, 0, 2), (True, 16, 1, 2),
+                (True, 20, 3, 2), (True, 24, 0, 2),
+                (False, 5, 1, 2), (False, 5, 2, 2), (False, 8, 0, 2),
+                (False, 8, 1, 2), (False, 11, 0, 2), (False, 16, 0, 2),
+                (False, 8, 0, 1), (False, 8, 1, 1), (False, 16, 0, 1),
+                (False, 16, 1, 1), (False, 24, 0, 1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("rot,C,q,fd", BUCKET_EDGES)
+def test_fused_ipm_kernel_bucket_edges(dev, rot, C, q, fd, dtype):
+    """Both variants at every bucket edge against the plain loop, 130
+    worlds: capped at 3 iterations per world (f64 1e-8, f32 1e-3), and at
+    f64 a full run with the same iterations and z, lam within 1e-8."""
+    args, base = fused_case(dev, rot, C, q, fd, 130, dtype, 3 * C + q + fd)
+    f64 = dtype == torch.float64
+    runs = [(dict(max_iter=3, tol=0.0, not_improved_lim=0),
+             1e-8 if f64 else 1e-3)]
+    if f64:
+        runs.append((dict(max_iter=25, tol=1e-8, not_improved_lim=3), 1e-8))
+    name = "fused_ipm" if rot else "fused_ipm_unrot"
+    for kw, lim in runs:
+        before = ipm.LAUNCHES[name]
+        got = ipm.fused_ipm(*args, **base, **kw)
+        ref = ipm.fused_ipm_ref(*args, **base, **kw)
+        assert ipm.LAUNCHES[name] == before + 1
+        # a full run's world whose merit lands on the stopping boundary may
+        # stop one iteration apart (chip_smoke.py allows 0.1% at B = 4096)
+        same = got[6] == ref[6]
+        assert int((~same).sum()) <= (1 if kw["tol"] > 0 else 0)
+        assert int((got[6] - ref[6]).abs().max()) <= 1
+        for g, r in zip(got[:4], ref[:4]):
+            if g.shape[-1]:
+                assert world_err(g[same], r[same]) <= lim
+
+
+@pytest.mark.parametrize("rot,C,q", [(True, 8, 0), (False, 8, 0),
+                                     (True, 24, 0)])
+@pytest.mark.parametrize("B", [1, 3, 130])
+def test_fused_ipm_ragged_batches(dev, rot, C, q, B):
+    """A batch that is no multiple of the worlds per CTA (8 at K = 16,
+    4 at K = 24 and 48): its worlds' results equal, bit for bit, those of
+    the same worlds inside a batch of 136."""
+    args, base = fused_case(dev, rot, C, q, 2, 136, torch.float64, 11)
+    kw = dict(base, max_iter=25, tol=1e-8, not_improved_lim=3)
+    full = ipm.fused_ipm(*args, **kw)
+    part = ipm.fused_ipm(*take_worlds(args, slice(0, B)), **kw)
+    for g, r in zip(part, full):
+        assert torch.equal(g, r[:B])
+
+
+def take_worlds(args, idx):
+    return [tuple(x[idx] for x in a) if isinstance(a, tuple) else a[idx]
+            for a in args]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("rot", [True, False])
+def test_fused_ipm_worlds_stopping_apart(dev, rot, dtype):
+    """Worlds of one CTA that stop at different iterations (easy ones on
+    tol, hard ones capped at max_iter) give, bit for bit, their solo runs'
+    results: a world that is done leaves without disturbing its CTA."""
+    args, base = fused_case(dev, rot, 8, 0, 2, 32, dtype, 5)
+    f64 = dtype == torch.float64
+    kw = dict(base, tol=1e-8 if f64 else 1e-5, not_improved_lim=0)
+    its = ipm.fused_ipm_ref(*args, **kw, max_iter=30)[6].cpu()
+    cap = int(its.double().median())
+    W = 8 if rot else 4   # worlds per CTA at K = 16 and K = 24
+    easy = (its < cap).nonzero().flatten()
+    hard = (its >= cap).nonzero().flatten()
+    assert len(easy) >= W // 2 and len(hard) >= W // 2
+    idx = torch.cat([easy[:W // 2], hard[:W // 2], easy[W // 2:],
+                     hard[W // 2:]]).to(dev)
+    args = take_worlds(args, idx)     # the first CTA mixes both kinds
+    kw["max_iter"] = cap
+    got = ipm.fused_ipm(*args, **kw)
+    stops = got[6][:W]
+    assert int(stops.min()) < cap and int(stops.max()) == cap
+    for w in range(W):
+        solo = ipm.fused_ipm(*take_worlds(args, slice(w, w + 1)), **kw)
+        for g, r in zip(solo, got):
+            assert torch.equal(g, r[w:w + 1])
+
+
 def check_residual(K, X, Xr):
     """||K X - I||_inf of the kernel's inverses at most GJ_RES_RATIO times
     the plain version's, in the largest and the median matrix."""
@@ -125,10 +233,11 @@ def check_residual(K, X, Xr):
     assert float(res.median()) <= GJ_RES_RATIO * float(res_r.median())
 
 
-@pytest.mark.parametrize("P", [16, 64, 128])
-def test_gj_inv_blocked_kernel_matches_plain(dev, P):
+@pytest.mark.parametrize("B", [1, 130, 257])
+@pytest.mark.parametrize("P", [16, 48, 64, 128])
+def test_gj_inv_blocked_kernel_matches_plain(dev, P, B):
     rng = np.random.default_rng(P)
-    K = torch.tensor(kkt_batch(rng, 130, P), dtype=torch.float32, device=dev)
+    K = torch.tensor(kkt_batch(rng, B, P), dtype=torch.float32, device=dev)
     before = linalg.LAUNCHES["gj_inv_blocked"]
     X = linalg.gj_inv_blocked(K)
     assert linalg.LAUNCHES["gj_inv_blocked"] == before + 1

@@ -110,3 +110,46 @@ def test_lcp_solve_full_and_dispatch_rules():
         got = lcp_solve_full(tq, tp, tG, th, None, None, tF, row_mask=trm,
                              **kw)
         check_solution(got, ref)
+
+
+@pytest.mark.parametrize("K,KB,lanes", [(1, 16, 16), (16, 16, 16),
+                                        (17, 24, 32), (24, 24, 32),
+                                        (25, 32, 32), (32, 32, 32),
+                                        (33, 48, 32), (48, 48, 32)])
+def test_fused_launch_shape_buckets(K, KB, lanes):
+    """The fused kernel's compile-time bucket is the least of 16, 24, 32,
+    48 that holds K; a world takes 16 lanes in bucket 16, else 32, and a
+    128-thread CTA holds 8 or 4 small worlds with Ghat in shared memory."""
+    assert ipm.fused_bucket(K) == KB and ipm.world_lanes(KB) == lanes
+    assert ipm.launch_shape(24, 32, 0, 8, K, 4) == (KB, 128 // lanes, 1)
+
+
+def test_fused_launch_shape_within_shared_memory():
+    """The per-world count repeats the kernel's carve (16-byte rounded
+    arrays); the worlds per CTA fit SMEM_LIMIT, Ghat leaves shared memory
+    only when one world does not fit with it, and past that the wrapper
+    raises."""
+    # the forward slice's K3 (n = 24, m = 32, C = 8, K = 16, f32): P at
+    # stride 20, Ghat at stride 25, 6 n-, 13 m-, 5 q-, 9 C-, 7 K-vectors
+    want = (16 * 20 + 16 * 25 + 6 * 24 + 13 * 32 + 5 * 4 + 9 * 8
+            + 7 * 16) * 4
+    assert ipm.smem_bytes(24, 32, 0, 8, 16, 16, 4, 1) == want == 5936
+    assert ipm.smem_bytes(24, 32, 0, 8, 16, 16, 4, 0) == want - 16 * 25 * 4
+    # path (c)'s K3u at f64: odd sizes round up to 16 bytes
+    assert ipm.smem_bytes(25, 32, 3, 8, 27, 32, 8, 1) == 8 * (
+        27 * 34 + 27 * 25 + 1 + 6 * 26 + 13 * 32 + 5 * 4 + 9 * 8 + 7 * 32)
+    for n in (24, 300, 600, 2000, 3000):
+        for K, item in ((16, 4), (48, 8)):
+            try:
+                KB, W, ghat = ipm.launch_shape(n, 96, 0, 24, K, item)
+            except ValueError:
+                assert ipm.smem_bytes(n, 96, 0, 24, K, ipm.fused_bucket(K),
+                                      item, 0) > ipm.SMEM_LIMIT
+                continue
+            per = ipm.smem_bytes(n, 96, 0, 24, K, KB, item, ghat)
+            assert 1 <= W <= 128 // ipm.world_lanes(KB)
+            assert W * per <= ipm.SMEM_LIMIT
+            assert ghat == int(ipm.smem_bytes(n, 96, 0, 24, K, KB, item, 1)
+                               <= ipm.SMEM_LIMIT)
+    with pytest.raises(ValueError):
+        ipm.fused_bucket(49)

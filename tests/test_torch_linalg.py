@@ -52,7 +52,14 @@ def test_larger_systems_raise():
     with pytest.raises(ValueError, match="backend='xla'"):
         linalg.plu_factor(K)
     r = torch.arange(2.0 * n, dtype=torch.float64).reshape(2, n)
-    fac = linalg.xla_factor(K)
-    assert isinstance(fac, linalg.PivotedLU)
-    for trans in (0, 1):
-        assert torch.equal(linalg.plu_solve(fac, r, trans), r)
+    # one thread: the library LU's per-column barriers stall for minutes
+    # when the test's process shares its cores with other busy processes
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        fac = linalg.xla_factor(K)
+        assert isinstance(fac, linalg.PivotedLU)
+        for trans in (0, 1):
+            assert torch.equal(linalg.plu_solve(fac, r, trans), r)
+    finally:
+        torch.set_num_threads(threads)

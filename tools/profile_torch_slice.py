@@ -5,7 +5,10 @@ benchmark scene, B = 4096 worlds, float32) through ``make_batched_step``,
 10 steps after 3 warm-up steps.  With ``--train`` it runs chip_smoke.py's
 training slice instead: value and gradients of mean(p^2) through the
 8-step rollout of the dense 64-circle grid (B = 256, float32), once after
-one warm-up.  It reports:
+one warm-up.  With ``--lcp`` it runs path (c): ``lcp_solve(fric_pair=False)``
+forward on the benchmark scene's 4096 first-step LCPs (chip_smoke.py's
+``slice_lcp`` and ``LCP_KW``), 10 batches after 3 warm-ups, a "step" being
+one batch.  It reports:
 
 - ms per rollout step on the host clock around synchronised work
   (profiler off);
@@ -15,12 +18,19 @@ one warm-up.  It reports:
   trace.
 
 Run from the repository root: ``python tools/profile_torch_slice.py
-[--train]``.  Exits non-zero without a CUDA device.
+[--train | --lcp] [--root DIR]``; ``--root`` profiles the package of
+another checkout (an earlier commit) on this tree's scenes, so two commits
+compare on the same work.  The last line is a JSON object of the step's
+numbers.  Exits non-zero without a CUDA device.
 """
 import argparse
+import importlib.util
+import json
 import os
 import sys
 import time
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 STEPS = 10
 
@@ -30,6 +40,10 @@ def main():
     ap.add_argument("--trace", default=None, help="Chrome trace output path")
     ap.add_argument("--train", action="store_true",
                     help="profile the dense training step (fwd+bwd)")
+    ap.add_argument("--lcp", action="store_true",
+                    help="profile path (c), one lcp_solve batch forward")
+    ap.add_argument("--root", default=HERE,
+                    help="checkout whose package is profiled (default: this)")
     args = ap.parse_args()
 
     import torch
@@ -37,9 +51,11 @@ def main():
     if not torch.cuda.is_available():
         print("profile_torch_slice: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
-    import chip_smoke
+    sys.path.insert(0, os.path.abspath(args.root))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
 
     dev = torch.device("cuda", 0)
     if args.train:
@@ -53,6 +69,19 @@ def main():
 
         def work(state):
             cs.train_step(torch, step, params, state, cs.TRAIN_STEPS)
+            return state
+    elif args.lcp:
+        cs = chip_smoke
+        blocks = cs.slice_lcp(torch, dev, torch.float32)
+        kw = dict(cs.LCP_KW, fric_pair=False)
+        for _ in range(3):                              # warm-up
+            cs.lcp_fwd_bwd(torch, blocks, False, **kw)
+        s = None
+        unit, per, what = STEPS, 1, (
+            f"lcp_solve(fric_pair=False) forward, B={cs.B} f32, per batch")
+
+        def work(state):
+            cs.lcp_fwd_bwd(torch, blocks, False, **kw)
             return state
     else:
         step, params, s = chip_smoke.slice_scene(
@@ -98,6 +127,9 @@ def main():
                        max_name_column_width=50))
     if args.trace:
         prof.export_chrome_trace(args.trace)
+    print(json.dumps(dict(what=what, root=os.path.abspath(args.root),
+                          host_ms=1e3 * sec, device_ms=dev_ms,
+                          launches=launches)))
     return 0
 
 
