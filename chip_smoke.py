@@ -15,9 +15,14 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    32, 33, 48) and on a ragged batch, with device times of kernel, plain
    version and library call (``cuda_ms``: CUDA events around back-to-back
    calls queued behind a sleep kernel, median of three windows); the panel inverses also by ||K X - I||
-   against the plain version's own, at B = 1 and 257 too.  With
-   ``--parent DIR`` (a checkout of an earlier commit), the seven kernels
-   of DIR and of this tree timed in turns by ``tools/time_kernels.py``.
+   against the plain version's own, at B = 1 and 257 too.  The lane LU
+   and its substitution at every bucket edge of ``csrc/lu.cu`` (n = 8,
+   9, 16, 17, ..., 64, 65, 88; ``LU_SIZES``), with each bucket kernel's
+   registers, spills and shared memory, timed at the forward slice's
+   (4096, 16) f32, path (c)'s (4096, 24) f32, ``LCPFunction``'s (256,
+   56) f64 and (4096, 88).  With ``--parent DIR`` (a checkout of an
+   earlier commit), the seven kernels of DIR and of this tree timed in
+   turns by ``tools/time_kernels.py``.
 3. The forward slice: the batched 8-circle contact rollout of the LCP
    benchmark scene (B = 4096 worlds, c_max = 8, dt = 0.01,
    SimConfig(max_iter=15, solver_eps=1e-6), float32, 20 steps) through
@@ -230,11 +235,82 @@ def phase_device(torch):
     return smi
 
 
-def phase_lu(torch, dev):
+# K1/K2 sizes: every bucket edge of csrc/lu.cu (NB and NB + 1) and the
+# paths' 16 (forward slice), 24 (path (c)) and 56 (LCPFunction's KKT)
+LU_SIZES = (8, 9, 16, 17, 24, 25, 32, 33, 48, 49, 56, 64, 65, 88)
+# (label, worlds, n, f64) of the timed K1/K2 shapes; the first is the row
+# of the kernel table
+LU_TIMED = (("forward slice", B, 16, False), ("path (c)", B, 24, False),
+            ("LCPFunction", 256, 56, True), ("n = 88", B, 88, False),
+            ("n = 88", B, 88, True))
+
+
+def lu_attrs(torch):
+    """Registers and local (spill) bytes a thread, and static shared bytes
+    a CTA, of every K1/K2 bucket kernel (K2 for trans 0 and 1); the shared
+    bytes held to ``linalg.lane_shape``'s count."""
+    import ctypes
     from lcp_physics_tpu_torch.ops import linalg
+    lib = linalg._lu_lib()
+    out = (ctypes.c_int * 3)()
+    for kind, name in ((0, "K1"), (1, "K2"), (2, "K2 trans=1")):
+        for f64 in (0, 1):
+            row = []
+            for nb in linalg.LANE_BUCKETS:
+                linalg._build.check(lib, lib.lcp_lu_attrs(kind, f64, nb, out),
+                                    "lcp_lu_attrs")
+                regs, local, shared = out
+                want = linalg.lane_shape(nb, 8 if f64 else 4, kind > 0).smem
+                check(shared == want, f"{name} bucket {nb} "
+                      f"{'f64' if f64 else 'f32'}: {shared} B of static "
+                      f"shared memory, as lane_shape counts ({want})")
+                row.append(f"{nb}: {regs} regs, {local} B local")
+            print(f"  {name} {'f64' if f64 else 'f32'} buckets: "
+                  + "; ".join(row), flush=True)
+
+
+def lu_times(torch, K, r):
+    """Device times of K1 and K2 (trans 0 and 1) on (K, r) beside the
+    plain versions, the library calls (``lu_factor(pivot=False)``,
+    ``lu_solve``) and the bounds: {"lu": ..., "solve": ..., "solve_t":
+    ...}."""
+    from lcp_physics_tpu_torch.ops import linalg
+    Bn, n = r.shape
+    item = K.element_size()
+    lu = linalg.plu_factor(K)
+    lu_ref = linalg.plu_factor_ref(K)
+    lu_l, piv = torch.linalg.lu_factor(K, pivot=False)
+    out = dict(lu=dict(
+        max_abs_err=float((lu - lu_ref).abs().max()),
+        ms=cuda_ms(torch, lambda: linalg.plu_factor(K)),
+        plain_ms=cuda_ms(torch, lambda: linalg.plu_factor_ref(K)),
+        library_ms=cuda_ms(torch, lambda: torch.linalg.lu_factor(
+            K, pivot=False)),
+        **bound(2 * nbytes(K), Bn * 2 * n ** 3 / 3, item)))
+    for trans, key in ((0, "solve"), (1, "solve_t")):
+        x = linalg.plu_solve(lu, r, trans)
+        x_ref = linalg.plu_solve_ref(lu, r, trans)
+        out[key] = dict(
+            max_abs_err=float((x - x_ref).abs().max()),
+            ms=cuda_ms(torch, lambda: linalg.plu_solve(lu, r, trans)),
+            plain_ms=cuda_ms(torch,
+                             lambda: linalg.plu_solve_ref(lu, r, trans)),
+            library_ms=cuda_ms(torch, lambda: torch.linalg.lu_solve(
+                lu_l, piv, r[..., None], adjoint=bool(trans))),
+            **bound(nbytes(lu, r, x), Bn * 2 * n * n, item))
+    return out
+
+
+def phase_lu(torch, dev):
+    """K1 and K2 against their plain versions at every size of LU_SIZES,
+    B = 4096, f32 and f64 (the factor bit for bit; the substitution at f64
+    per call 1e-8, at f32 by residual 1e-4), the
+    bucket kernels' registers and spills, then device times at LU_TIMED.
+    Returns the kernel rows of the forward slice's shape."""
+    from lcp_physics_tpu_torch.ops import linalg
+    lu_attrs(torch)
     rng = np.random.default_rng(0)
-    out = {}
-    for n in (16, 32, 48, 88):
+    for n in LU_SIZES:
         Kn = kkt_batch(rng, B, n)
         rn = rng.standard_normal((B, n))
         for dt in (torch.float32, torch.float64):
@@ -244,9 +320,8 @@ def phase_lu(torch, dev):
             lu_ref = linalg.plu_factor_ref(K)
             torch.cuda.synchronize()
             tag = f"n={n} {str(dt)[6:]}"
-            if dt == torch.float64:
-                check(rel_err(lu, lu_ref) <= 1e-8,
-                      f"lu {tag}: factor vs plain {rel_err(lu, lu_ref):.2e}")
+            check(torch.equal(lu, lu_ref),
+                  f"lu {tag}: the factor is plain's bit for bit")
             for trans in (0, 1):
                 x = linalg.plu_solve(lu, r, trans)
                 x_ref = linalg.plu_solve_ref(lu_ref, r, trans)
@@ -262,33 +337,19 @@ def phase_lu(torch, dev):
                                / r.double().abs().amax(-1)).max())
                     check(e <= 1e-4, f"solve {tag} trans={trans}: "
                                      f"residual {e:.2e}")
-            if n == 2 * C and dt == torch.float32:   # the slice's K2 = 16
-                x = linalg.plu_solve(lu, r)
-                x_ref = linalg.plu_solve_ref(lu_ref, r)
-                lu_l, piv = torch.linalg.lu_factor(K, pivot=False)
-                out["lu"] = dict(
-                    max_abs_err=float((lu - lu_ref).abs().max()),
-                    ms=cuda_ms(torch, lambda: linalg.plu_factor(K)),
-                    plain_ms=cuda_ms(torch, lambda: linalg.plu_factor_ref(K)),
-                    library_ms=cuda_ms(torch, lambda: torch.linalg.lu_factor(
-                        K, pivot=False)),
-                    **bound(2 * nbytes(K), B * 2 * n ** 3 / 3, 4))
-                out["solve"] = dict(
-                    max_abs_err=float((x - x_ref).abs().max()),
-                    ms=cuda_ms(torch, lambda: linalg.plu_solve(lu, r)),
-                    plain_ms=cuda_ms(torch,
-                                     lambda: linalg.plu_solve_ref(lu, r)),
-                    library_ms=cuda_ms(torch, lambda: torch.linalg.lu_solve(
-                        lu_l, piv, r[..., None])),
-                    **bound(nbytes(lu, r, x), B * 2 * n * n, 4))
-            if n == 88:
-                print(f"  n=88 {str(dt)[6:]}: factor "
-                      f"{cuda_ms(torch, lambda: linalg.plu_factor(K)):.3f} ms"
-                      f" (plain {cuda_ms(torch, lambda: linalg.plu_factor_ref(K)):.3f}),"
-                      f" solve {cuda_ms(torch, lambda: linalg.plu_solve(lu, r)):.3f} ms"
-                      f" (plain {cuda_ms(torch, lambda: linalg.plu_solve_ref(lu, r)):.3f})",
-                      flush=True)
-    return out
+    out = {}
+    for label, Bn, n, f64 in LU_TIMED:
+        dt = torch.float64 if f64 else torch.float32
+        K = torch.tensor(kkt_batch(rng, Bn, n), dtype=dt, device=dev)
+        r = torch.tensor(rng.standard_normal((Bn, n)), dtype=dt, device=dev)
+        times = lu_times(torch, K, r)
+        for k, t in times.items():
+            print(f"  {k} ({Bn}, {n}) {str(dt)[6:]}, {label}: {t['ms']:.4f} "
+                  f"ms (plain {t['plain_ms']:.3f}, library "
+                  f"{t['library_ms']:.4f}, bound {t['bound_ms']:.4f} ms by "
+                  f"{t['bound_by']})", flush=True)
+        out = out or times
+    return {k: out[k] for k in ("lu", "solve")}
 
 
 def inv_residual(torch, K, X):

@@ -255,15 +255,19 @@ def make_step_batched(static: SceneStatic, config: SimConfig = SimConfig(),
         zeros_i = torch.zeros(B, dtype=torch.int32, device=dev)
         zeros_f = torch.zeros(B, dtype=dtype, device=dev)
         eq = assemble.eq(params, states, dt_w)
+        ncon, prepen = zeros_i, zeros_f
+        if not C:
+            # no contact capacity: the solver's equality-only KKT, with
+            # its regularization and its implicit backward, as in JAX
+            v_flat = lcp_solve(**assemble.empty_blocks(eq), **dyn_kw)
         # Contact-free fast path: the AABB predicate False proves the
         # whole batch contact-free (host sync, see module docstring).
-        if C and (not fast_free
-                  or bool(assemble.any_overlap(params, states, dt_w).any())):
+        elif fast_free and not bool(
+                assemble.any_overlap(params, states, dt_w).any()):
+            v_flat = _equality_solve(eq["Q"], eq["p"], eq["A"], eq["b"])
+        else:
             v_flat, ncon, prepen = solve_with_contacts(params, states, eq,
                                                        dt_w)
-        else:
-            v_flat = _equality_solve(eq["Q"], eq["p"], eq["A"], eq["b"])
-            ncon, prepen = zeros_i, zeros_f
         v_new = v_flat.reshape(B, N, 3)
         p_new = states.p + dt_w[:, None, None] * v_new
         new_states = WorldState(p=p_new, v=v_new, t=states.t + dt_w)

@@ -14,6 +14,11 @@ __device__ __forceinline__ T safe_inv(T d) {
   return T(1) / safe;
 }
 
+// The 16-byte vector of T, for vector loads and stores.
+template <typename T> struct Vec16;
+template <> struct Vec16<float> { using type = float4; };
+template <> struct Vec16<double> { using type = double2; };
+
 template <typename T>
 __device__ __forceinline__ T warp_sum(T v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

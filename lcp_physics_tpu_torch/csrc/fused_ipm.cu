@@ -153,10 +153,6 @@ __host__ __device__ inline size_t carve(Smem<T>* S, T* base, int n, int m,
   return off;
 }
 
-template <typename T> struct Vec16;
-template <> struct Vec16<float> { using type = float4; };
-template <> struct Vec16<double> { using type = double2; };
-
 // sum_j a[j] * v[j] over j < N in order, v in shared memory (16-byte
 // aligned), read as 16-byte loads.
 template <typename T, int N>

@@ -795,14 +795,17 @@ def pdipm_solve(Q, p, G, h, A, b, F, *, max_iter=20, tol=1e-7,
                                  gamma_rows if q_diag is not None else 0,
                                  refine, factor_precision, fric_pair)
     # the fused whole-IPM kernel: the JAX package's dispatch, with the
-    # rotated kernel preferred where the caller guarantees the +- pair
+    # rotated kernel preferred where the caller guarantees the +- pair,
+    # and only where a world fits the kernel's shared memory
     fuse = fuse_rot = False
     plain_mehrotra = refine == 0 and gondzio == 0 and not verbose
     if (cone and q_diag is not None and gamma_rows == F.C and plain_mehrotra
             and max_iter > 0 and backend != "xla"):
-        fuse_rot = bool(fric_pair) and ipm.fused_supported(
-            m - F.C, q, F.C, F.fd, fric_pair=True)
-        fuse = fuse_rot or ipm.fused_supported(m - F.C, q, F.C, F.fd)
+        fits = lambda K: ipm.launch_fits(n, m, q, F.C, K, p.element_size())
+        fuse_rot = (bool(fric_pair) and ipm.fused_supported(
+            m - F.C, q, F.C, F.fd, fric_pair=True) and fits(2 * F.C + q))
+        fuse = fuse_rot or (ipm.fused_supported(m - F.C, q, F.C, F.fd)
+                            and fits(m - F.C + q))
     z, s, lam, nu = _start(kkt_factor, p, h, b, row_mask, consts)
     kw = dict(max_iter=max_iter, tol=tol, consts=consts,
               not_improved_lim=not_improved_lim, stall_rtol=stall_rtol)

@@ -52,6 +52,15 @@ def fused_supported(mg, q, C, fd, fric_pair=False):
     return K <= MAX_FUSED_K
 
 
+def launch_fits(n, m, q, C, K, itemsize):
+    """Whether :func:`launch_shape` takes the system: K within the largest
+    bucket and one world, with Ghat left in global memory, within
+    SMEM_LIMIT.  Past it (from n = 4,693 at f64 and 9,529 at f32 with
+    C = 8, rotated) the solver runs its unfused loop."""
+    return K <= MAX_FUSED_K and smem_bytes(
+        n, m, q, C, K, fused_bucket(K), itemsize, 0) <= SMEM_LIMIT
+
+
 def _operands(Ghat, q_diag):
     qinv = 1.0 / q_diag
     P = (Ghat * qinv[:, None, :]) @ Ghat.transpose(1, 2)

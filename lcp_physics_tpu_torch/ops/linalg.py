@@ -43,6 +43,8 @@ import torch
 from lcp_physics_tpu_torch.ops import _build
 
 MAX_LANE_N = 88
+LANE_BUCKETS = (8, 16, 24, 32, 48, 64, 88)   # csrc/lu.cu's compile-time sizes
+LANE_CTA_THREADS = 128
 PANEL = 128
 MAX_BLOCKED_N = 1536
 GJ_BLOCK = 16
@@ -61,6 +63,33 @@ def _safe_inv(d):
     tiny = torch.full_like(d, 1e-20)
     safe = torch.where(d.abs() < tiny, torch.where(d < 0, -tiny, tiny), d)
     return 1.0 / safe
+
+
+class LaneShape(NamedTuple):
+    bucket: int           # compile-time size NB >= n
+    world_threads: int    # threads one world takes
+    worlds_per_cta: int
+    cta_threads: int
+    smem: int             # static shared bytes a CTA
+
+
+def lane_shape(n, itemsize, solve=False):
+    """The launch of csrc/lu.cu's factor (K1) or substitution (K2,
+    ``solve``) for n-row systems: the least bucket of ``LANE_BUCKETS``
+    that holds n; up to bucket 32 a world takes the bucket's lanes (8, 16)
+    or a warp and a 128-thread CTA holds several worlds; past it the
+    factor gives a world a CTA of whole warps, one row a thread, with a
+    double-buffered pivot row in shared memory (NB entries and 16 bytes
+    for the pivot's reciprocal), and the substitution a warp."""
+    NB = next((nb for nb in LANE_BUCKETS if n <= nb), None)
+    if NB is None:
+        raise ValueError(f"the lane kernels take n <= {MAX_LANE_N}, got {n}")
+    if NB <= 32 or solve:
+        lanes = NB if NB <= 16 else 32
+        return LaneShape(NB, lanes, LANE_CTA_THREADS // lanes,
+                         LANE_CTA_THREADS, 0)
+    threads = -(-NB // 32) * 32
+    return LaneShape(NB, threads, 1, threads, 2 * (NB * itemsize + 16))
 
 
 def blocked_path(n):
@@ -176,9 +205,11 @@ def _lu_lib():
         P, I = ctypes.c_void_p, ctypes.c_int
         for ct in ("f32", "f64"):
             f = getattr(lib, f"lcp_lu_factor_{ct}")
-            f.argtypes, f.restype = [P, P, I, I, P], I
+            f.argtypes, f.restype = [P, P, I, I, I, I, P], I
             f = getattr(lib, f"lcp_lu_solve_{ct}")
-            f.argtypes, f.restype = [P, P, P, I, I, I, P], I
+            f.argtypes, f.restype = [P, P, P, I, I, I, I, I, P], I
+        lib.lcp_lu_attrs.argtypes = [I, I, I, ctypes.POINTER(I)]
+        lib.lcp_lu_attrs.restype = I
         lib._lcp_typed = True
     return lib
 
@@ -207,9 +238,11 @@ def lu_factor(K):
     K = K.contiguous()
     _check_cuda("LU", K)
     lib = _lu_lib()
+    shape = lane_shape(n, K.element_size())
     lu = torch.empty_like(K)
     rc = getattr(lib, f"lcp_lu_factor_{_CT[K.dtype]}")(
-        _build.ptr(K), _build.ptr(lu), B, n, _build.stream_ptr(lib, K.device))
+        _build.ptr(K), _build.ptr(lu), B, n, shape.bucket,
+        shape.worlds_per_cta, _build.stream_ptr(lib, K.device))
     _build.check(lib, rc, "lu_factor")
     LAUNCHES["lu"] += 1
     return lu
@@ -225,10 +258,11 @@ def lu_solve(lu, r, trans=0):
     r = r.contiguous()
     _check_cuda("LU", lu, r)
     lib = _lu_lib()
+    shape = lane_shape(n, r.element_size(), solve=True)
     x = torch.empty_like(r)
     rc = getattr(lib, f"lcp_lu_solve_{_CT[r.dtype]}")(
         _build.ptr(lu), _build.ptr(r), _build.ptr(x), B, n, int(trans),
-        _build.stream_ptr(lib, r.device))
+        shape.bucket, shape.worlds_per_cta, _build.stream_ptr(lib, r.device))
     _build.check(lib, rc, "lu_solve")
     LAUNCHES["solve_t" if trans else "solve"] += 1
     return x

@@ -25,12 +25,24 @@ def dev():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("B", [3, 130])
-@pytest.mark.parametrize("n", [5, 16, 88])
+# every bucket edge of csrc/lu.cu (NB and NB + 1) and the paths' 16, 24, 56
+LU_SIZES = [1, 8, 9, 15, 16, 17, 24, 25, 32, 33, 48, 49, 56, 64, 65, 88]
+
+
+def lu_case(dev, B, n, dtype, seed):
+    rng = np.random.default_rng(seed)
+    K = torch.tensor(kkt_batch(rng, B, n), dtype=dtype, device=dev)
+    r = torch.tensor(rng.standard_normal((B, n)), dtype=dtype, device=dev)
+    return K, r
+
+
+@pytest.mark.parametrize("B", [1, 3, 4097])
+@pytest.mark.parametrize("n", LU_SIZES)
 def test_lu_kernels_match_plain_f64(dev, B, n):
-    rng = np.random.default_rng(n)
-    K = torch.tensor(kkt_batch(rng, B, n), device=dev)
-    r = torch.tensor(rng.standard_normal((B, n)), device=dev)
+    """K1 and K2 (trans 0 and 1) against the plain versions at f64; the
+    column-form substitution sums in another order than plain's dot
+    products, within 1e-10."""
+    K, r = lu_case(dev, B, n, torch.float64, n)
     before = dict(linalg.LAUNCHES)
     lu = linalg.plu_factor(K)
     lu_ref = linalg.plu_factor_ref(K)
@@ -44,17 +56,40 @@ def test_lu_kernels_match_plain_f64(dev, B, n):
     assert linalg.LAUNCHES["solve_t"] == before["solve_t"] + 1
 
 
-@pytest.mark.parametrize("n", [5, 88])
-def test_lu_kernels_f32_residual(dev, n):
-    rng = np.random.default_rng(7)
-    K = torch.tensor(kkt_batch(rng, 64, n), dtype=torch.float32, device=dev)
-    r = torch.tensor(rng.standard_normal((64, n)), dtype=torch.float32,
-                     device=dev)
+@pytest.mark.parametrize("B", [1, 3, 4097])
+@pytest.mark.parametrize("n", LU_SIZES)
+def test_lu_kernels_f32_residual(dev, B, n):
+    K, r = lu_case(dev, B, n, torch.float32, 7)
     lu = linalg.plu_factor(K)
     for trans, Kop in ((0, K), (1, K.transpose(1, 2))):
         x = linalg.plu_solve(lu, r, trans)
         res = torch.einsum("bij,bj->bi", Kop.double(), x.double()) - r
         assert float(res.abs().max() / r.abs().max()) < 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", LU_SIZES)
+def test_lu_factor_is_plain_bit_for_bit(dev, n, dtype):
+    """K1 rounds each update as the plain version does (the product, then
+    the difference; no FMA), in its order: the same factor bit for bit."""
+    K, _ = lu_case(dev, 4097, n, dtype, n + 1)
+    assert torch.equal(linalg.plu_factor(K), linalg.plu_factor_ref(K))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [8, 16, 17, 24, 56, 88])
+def test_lu_kernels_batch_slice_bitwise(dev, n, dtype):
+    """Worlds factored and solved in a batch of 4,097 give, bit for bit,
+    what the same worlds give alone, at the batch's start and inside it
+    (other lanes of a warp, another CTA), unaligned rows included."""
+    K, r = lu_case(dev, 4097, n, dtype, 3)
+    lu = linalg.plu_factor(K)
+    xs = [linalg.plu_solve(lu, r, trans) for trans in (0, 1)]
+    for sl in (slice(0, 1), slice(0, 3), slice(5, 4097), slice(1, 2)):
+        part = linalg.plu_factor(K[sl])
+        assert torch.equal(part, lu[sl])
+        for trans, x in enumerate(xs):
+            assert torch.equal(linalg.plu_solve(lu[sl], r[sl], trans), x[sl])
 
 
 @pytest.mark.parametrize("C,q", [(4, 0), (4, 3), (24, 0)])

@@ -12,7 +12,8 @@ from lcp_physics_tpu.ops.ipm import fused_ipm as jax_fused_ipm
 from lcp_physics_tpu.ops.ipm import fused_supported as jax_fused_supported
 from test_fused_ipm import engine_instance
 
-from lcp_physics_tpu_torch.lcp import ConeF, lcp_solve_full, pdipm_solve
+from lcp_physics_tpu_torch.lcp import (ConeF, lcp_solve_full, pdipm,
+                                       pdipm_solve)
 from lcp_physics_tpu_torch.ops import ipm
 
 
@@ -153,3 +154,48 @@ def test_fused_launch_shape_within_shared_memory():
                                <= ipm.SMEM_LIMIT)
     with pytest.raises(ValueError):
         ipm.fused_bucket(49)
+
+
+def test_launch_fits_exactly_where_launch_shape_returns():
+    for item in (4, 8):
+        for K in (16, 24, 48, 49):
+            for n in (24, 600, 4692, 4693, 9528, 9529, 20000):
+                try:
+                    ipm.launch_shape(n, 32, 0, 8, K, item)
+                    fits = True
+                except ValueError:
+                    fits = False
+                assert ipm.launch_fits(n, 32, 0, 8, K, item) == fits
+
+
+class Dispatched(Exception):
+    pass
+
+
+@pytest.mark.parametrize("n,dtype,fused", [
+    (24, torch.float32, True), (4692, torch.float64, True),
+    (4693, torch.float64, False), (4800, torch.float64, False),
+    (9600, torch.float32, False)])
+def test_fused_dispatch_within_shared_memory(n, dtype, fused, monkeypatch):
+    """The fused kernel takes a system only where one world fits its
+    shared memory (``ipm.launch_fits``): at C = 8 and the rotated K = 16,
+    up to n = 4,692 at f64 and 9,528 at f32.  Past that (1,600 bodies at
+    f64, 3,200 at f32) the solver runs the unfused loop, where the
+    kernel's launch would raise; the JAX package solves these too."""
+    def stop(what):
+        def f(*a, **k):
+            raise Dispatched(what)
+        return f
+
+    monkeypatch.setattr(ipm, "fused_ipm", stop("fused"))
+    monkeypatch.setattr(pdipm, "unfused_loop", stop("unfused"))
+    C = 8
+    assert ipm.launch_fits(n, 4 * C, 0, C, 2 * C, dtype.itemsize) == fused
+    rng = np.random.default_rng(n)
+    qd, p, G, h, A, b, F, rmask = engine_instance(rng, 1, n, C, pair=True)
+    t = lambda x: torch.tensor(np.asarray(x), dtype=dtype)
+    with pytest.raises(Dispatched) as took:
+        pdipm_solve(t(qd), t(p), t(G), t(h), t(A), t(b),
+                    ConeF(t(F.mu), t(F.valid), 2), row_mask=t(rmask),
+                    max_iter=1, q_is_diag=True, gamma_rows=C, fric_pair=True)
+    assert str(took.value) == ("fused" if fused else "unfused")

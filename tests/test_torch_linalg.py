@@ -63,3 +63,29 @@ def test_larger_systems_raise():
             assert torch.equal(linalg.plu_solve(fac, r, trans), r)
     finally:
         torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize("n,NB,lanes", [
+    (1, 8, 8), (8, 8, 8), (9, 16, 16), (16, 16, 16), (17, 24, 32),
+    (24, 24, 32), (25, 32, 32), (32, 32, 32), (33, 48, 64), (48, 48, 64),
+    (49, 64, 64), (56, 64, 64), (64, 64, 64), (65, 88, 96), (88, 88, 96)])
+def test_lane_launch_shape(n, NB, lanes):
+    """csrc/lu.cu's launch: the least bucket of 8, 16, 24, 32, 48, 64, 88
+    that holds n.  Up to 32 a world takes ``lanes`` threads (NB at 8 and
+    16, else a warp) in 128-thread CTAs, for the factor and the
+    substitution alike.  Past 32 the factor gives a world a CTA of
+    ``lanes`` threads (whole warps, one row a thread) with two pivot rows
+    of NB entries and 16 bytes in shared memory, and the substitution a
+    warp."""
+    for item in (4, 8):
+        fac = linalg.lane_shape(n, item)
+        sol = linalg.lane_shape(n, item, solve=True)
+        assert fac.bucket == sol.bucket == NB
+        if NB <= 32:
+            assert fac == sol == (NB, lanes, 128 // lanes, 128, 0)
+        else:
+            assert fac == (NB, lanes, 1, lanes, 2 * (NB * item + 16))
+            assert sol == (NB, 32, 4, 128, 0)
+        assert fac.world_threads * fac.worlds_per_cta <= fac.cta_threads
+    with pytest.raises(ValueError):
+        linalg.lane_shape(linalg.MAX_LANE_N + 1, 4)

@@ -7,8 +7,10 @@
 
 Each kernel is timed as ``chip_smoke.py`` times it (``cuda_ms``: CUDA
 events around back-to-back launches, divided by the count, median of three
-windows) on inputs made from fixed seeds at its path's shape: K1/K2 on
-(4096, 16, 16) f32 KKT matrices; K3 and K3u on 4096 engine-layout LCPs of
+windows) on inputs made from fixed seeds at its path's shape: K1/K2
+(trans 0 and 1) on (4096, 16, 16) f32 KKT matrices (the forward slice),
+(4096, 24, 24) f32 (path (c)), (256, 56, 56) f64 (``LCPFunction``'s
+dense KKT) and (4096, 88, 88) f32 and f64 (the largest lane size); K3 and K3u on 4096 engine-layout LCPs of
 the forward slice's size (n = 24, C = 8: K = 16 rotated, 24 unrotated)
 under its solver settings (max_iter 15, tol 1e-6, not_improved_lim 1), f32;
 K4 on (256, 64, 64) f32 panels; K5 on (32, 128, 128) f64 panels; K6 on the
@@ -29,8 +31,13 @@ import sys
 import numpy as np
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-NAMES = ("lu", "solve", "fused_ipm", "fused_ipm_unrot", "gj_inv_blocked",
-         "gj_inv", "ipm_iter")
+# (suffix, worlds, n, f64) of the K1/K2 shapes
+LU_SHAPES = (("", 4096, 16, False), ("_24", 4096, 24, False),
+             ("_56_f64", 256, 56, True), ("_88", 4096, 88, False),
+             ("_88_f64", 4096, 88, True))
+NAMES = tuple(k + sfx for sfx, *_ in LU_SHAPES
+              for k in ("lu", "solve", "solve_t")) + (
+    "fused_ipm", "fused_ipm_unrot", "gj_inv_blocked", "gj_inv", "ipm_iter")
 
 
 def smoke():
@@ -52,11 +59,15 @@ def measure(torch, cs, dev):
     f32, f64 = torch.float32, torch.float64
     rng = np.random.default_rng(0)
     out = {}
-    K = torch.tensor(cs.kkt_batch(rng, 4096, 16), dtype=f32, device=dev)
-    r = torch.tensor(rng.standard_normal((4096, 16)), dtype=f32, device=dev)
-    lu = linalg.plu_factor(K)
-    out["lu"] = cs.cuda_ms(torch, lambda: linalg.plu_factor(K))
-    out["solve"] = cs.cuda_ms(torch, lambda: linalg.plu_solve(lu, r))
+    for sfx, B, n, f64_ in LU_SHAPES:
+        dt = f64 if f64_ else f32
+        K = torch.tensor(cs.kkt_batch(rng, B, n), dtype=dt, device=dev)
+        r = torch.tensor(rng.standard_normal((B, n)), dtype=dt, device=dev)
+        lu = linalg.plu_factor(K)
+        out["lu" + sfx] = cs.cuda_ms(torch, lambda: linalg.plu_factor(K))
+        for trans, key in ((0, "solve"), (1, "solve_t")):
+            out[key + sfx] = cs.cuda_ms(
+                torch, lambda: linalg.plu_solve(lu, r, trans))
     for rot in (True, False):
         inst = cs.engine_instance(np.random.default_rng(0 if rot else 1), 4096,
                                   24, 8, 0, pair=rot, fd=2)
