@@ -20,7 +20,11 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    9, 16, 17, ..., 64, 65, 88; ``LU_SIZES``), with each bucket kernel's
    registers, spills and shared memory, timed at the forward slice's
    (4096, 16) f32, path (c)'s (4096, 24) f32, ``LCPFunction``'s (256,
-   56) f64 and (4096, 88).  With ``--parent DIR`` (a checkout of an
+   56) f64 and (4096, 88).  The scalar panel kernel (K5) at every bucket
+   edge (``GJ_SIZES``, clusters of 1 to 4 CTAs) and on a panel with a
+   NaN, with its buckets' registers, spills and shared memory, timed at
+   (32, 128, 128) f64 and (256, 128, 128) f32.  K6's registers and
+   spills, and K6 on large-n instances.  With ``--parent DIR`` (a checkout of an
    earlier commit), the seven kernels of DIR and of this tree timed in
    turns by ``tools/time_kernels.py``.
 3. The forward slice: the batched 8-circle contact rollout of the LCP
@@ -35,7 +39,8 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    (B = 256, c_max = 128, SimConfig(max_iter=12, solver_eps=1e-5),
    float32; the rotated Schur system K2 = 256 goes through the blocked
    factor and the rank-16 panel kernel), the same at float64 (B = 32,
-   the scalar panel kernel), a B = 2 float64 grid held against the JAX
+   the scalar panel kernel; its device time per step), a B = 2 float64
+   grid held against the JAX
    record ``tests/data/torch_train_golden.json``, and the backward of
    bench.py::bench_fwd_bwd's touching 8-circle line (B = 64, 20 steps,
    the trans=1 substitution kernel) — each through the kernels with the
@@ -47,7 +52,8 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    with host reads and device events per step.  Before it, in the kernel
    phase, K6 against its plain iteration on the same scene's first-step
    LCP (one iteration at B = 256 f32 and B = 32 f64, runs capped at 3
-   iterations, a full f32 run against plain's one-ulp spread).
+   iterations, a full f32 run against plain's one-ulp spread), printing
+   its launch shape.
 6. Path (a), the accuracy profile: the dense training step with
    SimConfig(solver_refine=1) (the explicit-inverse factor with two
    refinement steps per solve, forward and backward), timed in turns with
@@ -382,12 +388,55 @@ def hold_gj(torch, name, f, fr, K):
     return X, Xr
 
 
+# K5's sizes: every bucket edge of its scalar kernel (32, 64, 96, 128) and
+# the tests' 40
+GJ_SIZES = (1, 31, 32, 33, 40, 64, 65, 96, 97, 128)
+
+
+def gj_attrs(torch):
+    """Registers and local (spill) bytes a thread of K5's bucket kernels,
+    and their shared bytes a CTA held to ``linalg.gj_shape``'s count."""
+    import ctypes
+    from lcp_physics_tpu_torch.ops import linalg
+    lib = linalg._gj_lib()
+    out = (ctypes.c_int * 3)()
+    for f64 in (0, 1):
+        row = []
+        for pb in linalg.GJ_BUCKETS:
+            linalg._build.check(lib, lib.lcp_gj_inv_attrs(f64, pb, out),
+                                "lcp_gj_inv_attrs")
+            regs, local, shared = out
+            want = linalg.gj_shape(pb, 8 if f64 else 4).smem
+            check(shared == want, f"K5 bucket {pb} {'f64' if f64 else 'f32'}"
+                  f": {shared} B of shared memory a CTA, as gj_shape counts "
+                  f"({want})")
+            row.append(f"{pb}: {regs} regs, {local} B local")
+        print(f"  K5 {'f64' if f64 else 'f32'} buckets: " + "; ".join(row),
+              flush=True)
+
+
+def gj_times(torch, name, f, fr, K):
+    """Device times of a panel kernel beside its plain version, the library
+    inverse and the bound on panels K."""
+    Bp, P = K.shape[:2]
+    X, Xr = f(K), fr(K)
+    return dict(max_abs_err=float((X - Xr).abs().max()),
+                ms=cuda_ms(torch, lambda: f(K)),
+                plain_ms=cuda_ms(torch, lambda: fr(K)),
+                library_ms=cuda_ms(torch, lambda: torch.linalg.inv(K)),
+                **bound(2 * nbytes(K), Bp * 2 * P ** 3, K.element_size()))
+
+
 def phase_gj(torch, dev):
     """K4 (rank-16 blocked, f32) and K5 (scalar, f32 and f64) against their
-    plain versions on quasi-definite panels, B = 1024, then at the training
-    paths' shapes: K4 on (256, 64, 64) f32 panels (the dense f32 step's
-    two-level split), K5 on (32, 128, 128) f64 (the f64 step)."""
+    plain versions on quasi-definite panels, B = 1024, K5 at every size of
+    GJ_SIZES (B = 33, f32 and f64: clusters of 1 to 4 CTAs) and on a panel
+    with a NaN, then at the training paths' shapes: K4 on (256, 64, 64) f32
+    panels (the dense f32 step's two-level split), K5 on (32, 128, 128) f64
+    (the f64 step) and on (256, 128, 128) f32 (``exact``, the f32 factor
+    under solver_factor_precision='highest')."""
     from lcp_physics_tpu_torch.ops import linalg
+    gj_attrs(torch)
     rng = np.random.default_rng(0)
     kinds = {"gj_inv_blocked": (linalg.gj_inv_blocked,
                                 linalg.gj_inv_blocked_ref),
@@ -405,18 +454,29 @@ def phase_gj(torch, dev):
             K = torch.tensor(kkt_batch(rng, Bp, P), dtype=torch.float32,
                              device=dev)
             hold_gj(torch, "gj_inv_blocked", *kinds["gj_inv_blocked"], K)
+    for P in GJ_SIZES:
+        Kn = kkt_batch(rng, 33, P)
+        for dt in (torch.float32, torch.float64):
+            hold_gj(torch, "gj_inv", *kinds["gj_inv"],
+                    torch.tensor(Kn, dtype=dt, device=dev))
+    K = torch.tensor(kkt_batch(rng, 3, 128), device=dev)
+    K[1, 5, 7] = float("nan")
+    X, Xr = linalg.gj_inv(K), linalg.gj_inv_ref(K)
+    check(torch.equal(torch.isfinite(X), torch.isfinite(Xr))
+          and bool(torch.isfinite(X[0]).all() and torch.isfinite(X[2]).all()),
+          "K5 with a NaN in one of 3 panels: non-finite where plain's is, "
+          "the other panels finite")
     out = {}
     for name, Bp, P, dt in (("gj_inv_blocked", TRAIN_B, 64, torch.float32),
-                            ("gj_inv", TRAIN_B64, 128, torch.float64)):
-        f, fr = kinds[name]
+                            ("gj_inv", TRAIN_B64, 128, torch.float64),
+                            ("gj_inv f32", TRAIN_B, 128, torch.float32)):
+        f, fr = kinds[name.split()[0]]
         K = torch.tensor(kkt_batch(rng, Bp, P), dtype=dt, device=dev)
-        X, Xr = hold_gj(torch, name, f, fr, K)
-        out[name] = dict(max_abs_err=float((X - Xr).abs().max()),
-                         ms=cuda_ms(torch, lambda: f(K)),
-                         plain_ms=cuda_ms(torch, lambda: fr(K)),
-                         library_ms=cuda_ms(torch, lambda: torch.linalg.inv(K)),
-                         **bound(2 * nbytes(K), Bp * 2 * P ** 3,
-                                 K.element_size()))
+        hold_gj(torch, name.split()[0], f, fr, K)
+        out[name] = t = gj_times(torch, name, f, fr, K)
+        print(f"  {name} ({Bp}, {P}, {P}) {str(dt)[6:]}: {t['ms']:.4f} ms "
+              f"(plain {t['plain_ms']:.3f}, library {t['library_ms']:.4f}, "
+              f"bound {t['bound_ms']:.4f} ms by {t['bound_by']})", flush=True)
     return out
 
 
@@ -887,6 +947,9 @@ def phase_train(torch, dev, smi):
           f"({1e3 * sec:.0f} ms vs plain {1e3 * sec_r:.0f} ms per fwd+bwd, "
           f"B={TRAIN_B64})")
 
+    per_step(torch, f"f64 dense training step (B={TRAIN_B64}, fwd+bwd)",
+             lambda: train_step(torch, step, params, state, TRAIN_STEPS),
+             TRAIN_STEPS, smi)
     hold_record(torch, dev, "torch_train_golden.json")
     return launches, launches64
 
@@ -951,6 +1014,83 @@ def iter_operands(torch, lcp):
     return vecs, X0, fac, consts
 
 
+def engine_iter_case(torch, dev, Bn, n, C, q, dt, seed):
+    """K6's operands on ``engine_instance`` LCPs (numpy, ``seed``): the
+    vectors, X0, the inverse at X0's scaling, the dtype's constants."""
+    from lcp_physics_tpu_torch.lcp.cone import ConeF
+    from lcp_physics_tpu_torch.lcp.pdipm import (_dtype_consts,
+                                                 _rot_factor_factory, _start)
+    from lcp_physics_tpu_torch.ops import ipm
+    qd, p, G, h, A, b, mu, valid, rmask = (
+        torch.tensor(x, dtype=dt, device=dev)
+        for x in engine_instance(np.random.default_rng(seed), Bn, n, C, q))
+    consts = _dtype_consts(dt)
+    ops = ipm.rot_operands(qd, G, A, C)
+    fac = _rot_factor_factory(ops, ConeF(mu, valid), consts["reg"])
+    X0 = torch.cat(_start(fac, p, h, b, rmask, consts), -1)
+    m = 4 * C
+    d_inv = torch.clamp(X0[:, n:n + m] / X0[:, n + m:n + 2 * m],
+                        consts["dinv_min"], consts["dinv_max"])
+    vecs = (ops[1], ops[2], p, h, b, mu, valid, rmask)
+    return vecs, X0, fac, fac.iter_inv_raw(d_inv), consts
+
+
+def iter_attrs(torch):
+    """K6's registers and spills at both dtypes."""
+    import ctypes
+    from lcp_physics_tpu_torch.ops import ipm_iter
+    lib = ipm_iter._lib()
+    out = (ctypes.c_int * 2)()
+    row = []
+    for f64 in (0, 1):
+        ipm_iter._build.check(lib, lib.lcp_ipm_iter_attrs(f64, out),
+                              "lcp_ipm_iter_attrs")
+        row.append(f"{'f64' if f64 else 'f32'} {out[0]} regs, {out[1]} B"
+                   " local")
+    print("  K6: " + "; ".join(row), flush=True)
+
+
+def hold_iter(torch, tag, vecs, X0, inv, fac, consts, C, lims, cap_lim):
+    """K6 against its plain iteration: one iteration from the same inputs
+    (per world: X, bestX, state within ``lims``), then runs capped at
+    CAP_ITERS iterations (z and lam within ``cap_lim``; at float32 within
+    max(cap_lim, 10x the plain run's own spread at p + 1 ulp), as
+    tests/test_torch_cuda.py holds them)."""
+    from lcp_physics_tpu_torch.ops import ipm_iter
+    Bn, n = vecs[2].shape
+    m = 4 * C
+    kw = dict(C=C, consts=consts, tol=1e-8, not_improved_lim=3,
+              stall_rtol=0.0)
+    a = (inv, *vecs, X0, X0, ipm_iter.initial_state(Bn, 10, X0.dtype,
+                                                     X0.device), 0)
+    got = ipm_iter.iteration(*a, **kw)
+    ref = ipm_iter._iter_ref(*a, **kw)
+    torch.cuda.synchronize()
+    errs = [float(world_rel(g, r).max()) for g, r in zip(got, ref)]
+    cap = dict(C=C, consts=consts, max_iter=CAP_ITERS, tol=0.0,
+               not_improved_lim=0, inv_raw=fac.iter_inv_raw)
+    g3 = ipm_iter.fused_iter_ipm(*vecs, X0, **cap)
+    r3 = ipm_iter.fused_iter_ipm_ref(*vecs, X0, **cap)
+    ez = world_rel(g3[0][:, :n], r3[0][:, :n])
+    el = world_rel(g3[0][:, n + m:n + 2 * m], r3[0][:, n + m:n + 2 * m])
+    e3 = float(torch.maximum(ez, el).max())
+    spread = ""
+    if X0.dtype == torch.float32:
+        u3 = ipm_iter.fused_iter_ipm_ref(vecs[0], vecs[1],
+                                         ulp_tensor(torch, vecs[2]),
+                                         *vecs[3:], X0, **cap)
+        eu = float(torch.maximum(
+            world_rel(u3[0][:, :n], r3[0][:, :n]),
+            world_rel(u3[0][:, n + m:n + 2 * m],
+                      r3[0][:, n + m:n + 2 * m])).max())
+        cap_lim = max(cap_lim, 10 * eu)
+        spread = f"; plain at p+1ulp: {eu:.2e}"
+    check(all(e <= lim for e, lim in zip(errs, lims)) and e3 <= cap_lim,
+          f"K6 {tag}: one iteration per world X {errs[0]:.2e}, bestX "
+          f"{errs[1]:.2e}, state {errs[2]:.2e} (<= {lims}); {CAP_ITERS} "
+          f"iterations z, lam {e3:.2e} (<= {cap_lim:.3g}{spread})")
+
+
 def iter_bound(inv, vecs, X, C):
     """K6's bound for one launch on which no world is done: the K2 x K2
     inverse block, Ghat, the vectors, X, bestX and the state read once, X,
@@ -971,6 +1111,19 @@ def phase_ipm_iter(torch, dev):
     one-ulp spread; timings of K6, the plain iteration and the inverse
     build."""
     from lcp_physics_tpu_torch.ops import ipm_iter
+    iter_attrs(torch)
+    # large n (the products over many column tiles), and a Schur system of
+    # rank 64 in 256 rows (tests/test_torch_cuda.py::ITER_CASES' worst
+    # conditioned, the plain f32 run's own one-ulp spread past 1e-3)
+    for Bn, n, C_, q, dt, lims, cap_lim, seed in (
+            (5, 1201, 128, 0, torch.float64, (1e-10,) * 3, 1e-8, 1201),
+            (7, 2001, 128, 0, torch.float32, (1e-3, 0.0, 1e-5), 1e-3, 2001),
+            (13, 64, 124, 8, torch.float32, (1e-3, 0.0, 1e-5), 1e-3, 196)):
+        vecs, X0, fac, inv, consts = engine_iter_case(
+            torch, dev, Bn, n, C_, q, dt, seed)
+        hold_iter(torch, f"(B={Bn}, n={n}, K2={2 * C_ + q}) "
+                  f"{str(dt)[6:]}", vecs, X0, inv, fac, consts, C_, lims,
+                  cap_lim)
     out = {}
     for dt, Bn, seed in ((torch.float32, TRAIN_B, 1),
                          (torch.float64, ITER_B64, 2)):
@@ -989,6 +1142,8 @@ def phase_ipm_iter(torch, dev):
             X0[:, n + m:n + 2 * m], min=consts["tiny"]), consts["dinv_min"],
             consts["dinv_max"])
         inv = fac.iter_inv_raw(d_inv)
+        print(f"  K6 {tag} (n={n}, K2={2 * C + q}): one CTA a world, "
+              f"{need} B of shared memory a CTA", flush=True)
         state = ipm_iter.initial_state(Bn, 12, dt, dev)
         kw = dict(C=C, consts=consts, tol=1e-5, not_improved_lim=1,
                   stall_rtol=0.0)
@@ -1017,7 +1172,11 @@ def phase_ipm_iter(torch, dev):
               f"K6 {tag}, {CAP_ITERS} iterations on every world: z "
               f"{float(ez.max()):.2e}, lam {float(el.max()):.2e} vs plain "
               f"(<= {lim:g})")
-        if f64:
+        if Bn != TRAIN_B:
+            print(f"  K6 {tag}: "
+                  f"{cuda_ms(torch, lambda: ipm_iter.iteration(*a, **kw)):.4f}"
+                  " ms per launch, device time", flush=True)
+        if f64 or Bn != TRAIN_B:
             continue
         full = dict(run, max_iter=12, tol=1e-5, not_improved_lim=1)
         g = ipm_iter.fused_iter_ipm(*vecs, X0, **full)

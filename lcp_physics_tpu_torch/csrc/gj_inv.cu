@@ -1,6 +1,6 @@
 // Gauss-Jordan inverses of the diagonal panels of the blocked LU, one world
-// per CTA, no pivoting (the panels are quasi-definite: every leading
-// principal block is nonsingular).
+// per CTA (K4) or per cluster of CTAs (K5), no pivoting (the panels are
+// quasi-definite: every leading principal block is nonsingular).
 //
 // gj_inv_blocked_kernel replaces the TPU kernel
 // lcp_physics_tpu/ops/linalg.py::_gj_inv_kernel_blocked (via
@@ -17,11 +17,10 @@
 // gj_inv_kernel replaces lcp_physics_tpu/ops/linalg.py::_gj_inv_kernel
 // (the scalar branch of _gj_inverse): float32 or float64 (B, P, P) panels,
 // P <= 128, one pivot per step.  The TPU kernel eliminates on the augmented
-// [K | I] (256 KB per world at f64, more than a CTA's shared memory); this
-// one works in place: per pivot k, row k is scaled by 1/A[k][k], the
-// other entries lose A[i][k] * row[j], column k becomes -A[i][k]/A[k][k]
-// and the pivot 1/A[k][k] -- the same arithmetic as the augmented form's
-// right half, in 128 KB at f64.
+// [K | I]; this one works in place: per pivot k, row k is scaled by
+// 1/A[k][k], the other entries lose A[i][k] * row[j], column k becomes
+// -A[i][k]/A[k][k] and the pivot 1/A[k][k] -- the same arithmetic as the
+// augmented form's right half.
 //
 // What bounds the blocked kernel on an H100: neither bytes (a 64-panel is
 // 16 KB, read once) nor FLOPs, but the latency of P/16 dependent block
@@ -41,10 +40,30 @@
 // inverted the next pivot block while the others finished the update
 // (look-ahead), and shuffling each pivot column before its reciprocal,
 // both measured slower (PERF.md).
-// The scalar kernel keeps the first design (latency of P barrier-separated
-// pivots over the panel in shared memory; one CTA per world).
+//
+// What bounds the scalar kernel: the latency of P dependent pivots, not
+// bytes (a (32, 128, 128) f64 launch moves 8 MB: 2.5 us) nor FLOPs (2P^3
+// a panel, ~16 us of one SM's f64 FMA rate).  Its first design gave a
+// world one CTA of 512 threads over the panel in shared memory (128 KB at
+// f64, so one CTA an SM and 32 of 132 SMs busy at B = 32), two
+// __syncthreads a pivot, a reload of the pivot and its reciprocal in every
+// thread, a runtime e / P and e % P per entry: 0.57 ms, 229x its bound.
+// This design fixes the size at compile time in a bucket, spreads a world
+// over a thread-block cluster of PB / 32 CTAs with their rows in
+// registers, and delays the update of the other CTAs' rows to one rank-32
+// product per 32 pivots, with the finished rows passed over distributed
+// shared memory: one __syncthreads a pivot in one CTA and one cluster
+// barrier a group (details below).  Most of the time is the 128 pivots'
+// dependent chain: two designs that took the barrier out of it (the
+// group's column block copied into every warp, a pivot then needing only
+// a __syncwarp; or the pivot rows passed through a ring in shared memory
+// with an mbarrier each) were no faster (PERF.md).
+
+#include <cooperative_groups.h>
 
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 constexpr int GJB = 16;  // the blocked kernel's rank
 
@@ -177,39 +196,170 @@ __global__ void __launch_bounds__(256)
     for (int c = 0; c < TS; ++c) out[off + (i0 + r) * P + j0 + c] = a[r][c];
 }
 
+// ---- the scalar kernel (K5) -------------------------------------------
+//
+// A world's panel, padded to the bucket PB (32, 64, 96, 128), is spread
+// over a cluster of CS = PB / 32 CTAs; CTA r of the cluster holds rows
+// 32r .. 32r+31 in registers (warp w rows 4w .. 4w+3 of them, lane l
+// columns l, l+32, ...).  Its 32 pivots (columns 32r .. 32r+31) form group
+// r.  Per group g, in order:
+//
+// 1. CTA g applies the group's 32 scalar pivots to its own rows: per pivot
+//    t the warp owning row t scales it by safe_inv of the current pivot
+//    entry and publishes it in a double-buffered shared row; one
+//    __syncthreads; every other row loses col * row (col shuffled from the
+//    lane owning the pivot column) and its pivot-column entry becomes
+//    -col * dinv.  That is the plain version's step on these 32 rows: each
+//    pivot stays a scalar pivot on the current entry.
+// 2. CTA g keeps its finished rows Rp (32 x PB) in shared memory; a
+//    cluster barrier publishes them.
+// 3. Every other CTA copies Rp over distributed shared memory and applies
+//    the group's 32 pivots to its rows at once: a row x with entries x_G in
+//    the group's columns becomes x - x_G Rp outside them and -x_G Rp inside
+//    (the augmented elimination's row operations, composed; no pivot block
+//    is inverted).
+//
+// After the last group a cluster barrier keeps every Rp alive until read,
+// and each CTA stores its rows.  Rows and columns from P to PB are the
+// identity, set in the predicated loads and never stored: a pivot on a
+// padded row subtracts 0 * x from the real entries, so the leading P x P
+// block is the unpadded inverse (tests/test_torch_linalg.py shows it bit
+// for bit on the plain version).
+template <typename T, int NC>
+__device__ __forceinline__ T pick(const T (&v)[NC], int c) {
+  T r = v[0];
+#pragma unroll
+  for (int k = 1; k < NC; ++k)
+    if (c == k) r = v[k];
+  return r;
+}
+
+constexpr int GJ_ROWS = 32;      // rows a CTA of the scalar kernel holds
+constexpr int GJ_THREADS = 256;  // 8 warps of GJ_RW rows
+constexpr int GJ_RW = GJ_ROWS / (GJ_THREADS / 32);
+
+// The scalar kernel's shared memory: its rows Rp and the copy of another
+// CTA's (GJ_ROWS x PB each), and two pivot rows with their reciprocals.
+// ops/linalg.py::gj_shape repeats the count.
 template <typename T>
-__global__ void gj_inv_kernel(const T* __restrict__ K, T* __restrict__ out,
-                              int P) {
+constexpr int gj_smem_bytes(int PB) {
+  return (2 * GJ_ROWS * PB + 2 * PB + 2) * (int)sizeof(T);
+}
+
+template <typename T, int PB>
+__global__ void __launch_bounds__(GJ_THREADS)
+    gj_inv_kernel(const T* __restrict__ K, T* __restrict__ out, int P) {
+  constexpr int NC = PB / 32;       // columns a lane holds
+  constexpr int CS = PB / GJ_ROWS;  // CTAs a world
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* A = reinterpret_cast<T*>(smem_raw);  // P x P
-  T* rowk = A + P * P;                    // scaled pivot row
-  T* colk = rowk + P;                     // pivot column
-  const size_t off = (size_t)blockIdx.x * P * P;
-  const int nn = P * P;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  for (int e = tid; e < nn; e += nt) A[e] = K[off + e];
-  __syncthreads();
-  for (int k = 0; k < P; ++k) {
-    const T dinv = safe_inv(A[k * P + k]);
-    for (int t = tid; t < P; t += nt) {
-      rowk[t] = A[k * P + t] * dinv;
-      colk[t] = A[t * P + k];
+  T* strip = reinterpret_cast<T*>(smem_raw);  // this CTA's Rp
+  T* rbuf = strip + GJ_ROWS * PB;             // the group owner's Rp
+  T* prow = rbuf + GJ_ROWS * PB;              // [2][PB]
+  T* pdinv = prow + 2 * PB;                   // [2]
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const size_t w = blockIdx.x / CS;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int i0 = rank * GJ_ROWS + warp * GJ_RW;  // this thread's first row
+  const T* Kw = K + w * P * P;
+  T a[GJ_RW][NC];
+#pragma unroll
+  for (int rr = 0; rr < GJ_RW; ++rr)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int i = i0 + rr, j = lane + 32 * c;
+      a[rr][c] = (i < P && j < P) ? Kw[(size_t)i * P + j]
+                                  : (i == j ? T(1) : T(0));
     }
-    __syncthreads();
-    for (int e = tid; e < nn; e += nt) {
-      const int i = e / P, j = e % P;
-      T v;
-      if (i == k)
-        v = j == k ? dinv : rowk[j];
-      else if (j == k)
-        v = -colk[i] * dinv;
-      else
-        v = A[e] - colk[i] * rowk[j];
-      A[e] = v;
+#pragma unroll 1
+  for (int g = 0; g < CS; ++g) {
+    if (g == rank) {
+      // the group's pivots on this CTA's rows; column 32g + t is lane t's
+      // slot g
+#pragma unroll 1
+      for (int t = 0; t < GJ_ROWS; ++t) {
+        const int buf = t & 1;
+        if (warp == t / GJ_RW) {  // warp-uniform
+          const int rt = t % GJ_RW;
+#pragma unroll
+          for (int rr = 0; rr < GJ_RW; ++rr) {
+            if (rr != rt) continue;
+            const T piv = __shfl_sync(0xffffffffu, pick(a[rr], g), t);
+            const T dinv = safe_inv(piv);
+#pragma unroll
+            for (int c = 0; c < NC; ++c) {
+              const T v = a[rr][c] * dinv;
+              prow[buf * PB + lane + 32 * c] = v;
+              a[rr][c] = (c == g && lane == t) ? dinv : v;
+            }
+            if (lane == 0) pdinv[buf] = dinv;
+          }
+        }
+        __syncthreads();
+        const T dinv = pdinv[buf];
+        T pr[NC];
+#pragma unroll
+        for (int c = 0; c < NC; ++c) pr[c] = prow[buf * PB + lane + 32 * c];
+#pragma unroll
+        for (int rr = 0; rr < GJ_RW; ++rr) {
+          if (warp * GJ_RW + rr == t) continue;  // warp-uniform
+          const T col = __shfl_sync(0xffffffffu, pick(a[rr], g), t);
+#pragma unroll
+          for (int c = 0; c < NC; ++c)
+            a[rr][c] = (c == g && lane == t) ? -col * dinv
+                                             : a[rr][c] - col * pr[c];
+        }
+      }
+#pragma unroll
+      for (int rr = 0; rr < GJ_RW; ++rr)
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+          strip[(warp * GJ_RW + rr) * PB + lane + 32 * c] = a[rr][c];
     }
-    __syncthreads();
+    cluster.sync();  // group g's rows are published
+    if (g != rank) {
+      using V = typename Vec16<T>::type;
+      constexpr int NV = GJ_ROWS * PB * (int)sizeof(T) / 16;
+      const V* src =
+          reinterpret_cast<const V*>(cluster.map_shared_rank(strip, g));
+      V* dst = reinterpret_cast<V*>(rbuf);
+      for (int e = threadIdx.x; e < NV; e += GJ_THREADS) dst[e] = src[e];
+      __syncthreads();
+      T xg[GJ_RW], u[GJ_RW][NC];
+#pragma unroll
+      for (int rr = 0; rr < GJ_RW; ++rr) {
+        xg[rr] = pick(a[rr], g);
+#pragma unroll
+        for (int c = 0; c < NC; ++c) u[rr][c] = T(0);
+      }
+#pragma unroll 4
+      for (int t = 0; t < GJ_ROWS; ++t) {
+        T rp[NC];
+#pragma unroll
+        for (int c = 0; c < NC; ++c) rp[c] = rbuf[t * PB + lane + 32 * c];
+#pragma unroll
+        for (int rr = 0; rr < GJ_RW; ++rr) {
+          const T x = __shfl_sync(0xffffffffu, xg[rr], t);
+#pragma unroll
+          for (int c = 0; c < NC; ++c) u[rr][c] += x * rp[c];
+        }
+      }
+#pragma unroll
+      for (int rr = 0; rr < GJ_RW; ++rr)
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+          a[rr][c] = c == g ? -u[rr][c] : a[rr][c] - u[rr][c];
+    }
   }
-  for (int e = tid; e < nn; e += nt) out[off + e] = A[e];
+  cluster.sync();  // every Rp has been read
+  T* ow = out + w * P * P;
+#pragma unroll
+  for (int rr = 0; rr < GJ_RW; ++rr)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int i = i0 + rr, j = lane + 32 * c;
+      if (i < P && j < P) ow[(size_t)i * P + j] = a[rr][c];
+    }
 }
 
 template <typename Kern>
@@ -241,16 +391,68 @@ static int launch_blocked(const float* K, float* out, int B, int P,
   }
 }
 
-template <typename T>
-static int launch_scalar(const T* K, T* out, int B, int P, void* stream) {
-  clear_last_error();
-  if (P <= 0 || P > 128) return (int)cudaErrorInvalidValue;
-  const int smem = (P * P + 2 * P) * (int)sizeof(T);
-  const int e = raise_smem(gj_inv_kernel<T>, smem);
+// The scalar kernel's bucket for P: the least of 32, 64, 96, 128 that
+// holds it (ops/linalg.py::gj_shape repeats the rule).
+static int gj_bucket(int P) { return (P + 31) / 32 * 32; }
+
+template <typename T, int PB>
+static int launch_scalar_pb(const T* K, T* out, int B, int P,
+                            cudaStream_t stream) {
+  const int smem = gj_smem_bytes<T>(PB);
+  const int e = raise_smem(gj_inv_kernel<T, PB>, smem);
   if (e != 0) return e;
-  if (B > 0)
-    gj_inv_kernel<T><<<B, 512, smem, (cudaStream_t)stream>>>(K, out, P);
+  if (B <= 0) return 0;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)B * (PB / GJ_ROWS));
+  cfg.blockDim = dim3(GJ_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = PB / GJ_ROWS;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t le = cudaLaunchKernelEx(&cfg, gj_inv_kernel<T, PB>, K,
+                                            out, P);
+  if (le != cudaSuccess) return (int)le;
   return (int)cudaGetLastError();
+}
+
+// A launch whose bucket PB or cluster size CS is not gj_bucket's is
+// refused, as is a cluster launch the card refuses.
+template <typename T>
+static int launch_scalar(const T* K, T* out, int B, int P, int PB, int CS,
+                         void* stream) {
+  clear_last_error();
+  if (P <= 0 || P > 128 || PB != gj_bucket(P) || CS != PB / GJ_ROWS)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (PB) {
+    case 32: return launch_scalar_pb<T, 32>(K, out, B, P, s);
+    case 64: return launch_scalar_pb<T, 64>(K, out, B, P, s);
+    case 96: return launch_scalar_pb<T, 96>(K, out, B, P, s);
+    case 128: return launch_scalar_pb<T, 128>(K, out, B, P, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+static int scalar_attrs(int PB, int* out) {
+  cudaFuncAttributes fa;
+  cudaError_t e = cudaErrorInvalidValue;
+  switch (PB) {
+    case 32: e = cudaFuncGetAttributes(&fa, gj_inv_kernel<T, 32>); break;
+    case 64: e = cudaFuncGetAttributes(&fa, gj_inv_kernel<T, 64>); break;
+    case 96: e = cudaFuncGetAttributes(&fa, gj_inv_kernel<T, 96>); break;
+    case 128: e = cudaFuncGetAttributes(&fa, gj_inv_kernel<T, 128>); break;
+  }
+  if (e != cudaSuccess) return (int)e;
+  out[0] = fa.numRegs;
+  out[1] = (int)fa.localSizeBytes;
+  out[2] = gj_smem_bytes<T>(PB);
+  return 0;
 }
 
 extern "C" {
@@ -258,10 +460,18 @@ int lcp_gj_inv_blocked_f32(const float* K, float* out, int B, int P,
                            void* s) {
   return launch_blocked(K, out, B, P, s);
 }
-int lcp_gj_inv_f32(const float* K, float* out, int B, int P, void* s) {
-  return launch_scalar<float>(K, out, B, P, s);
+int lcp_gj_inv_f32(const float* K, float* out, int B, int P, int PB, int CS,
+                   void* s) {
+  return launch_scalar<float>(K, out, B, P, PB, CS, s);
 }
-int lcp_gj_inv_f64(const double* K, double* out, int B, int P, void* s) {
-  return launch_scalar<double>(K, out, B, P, s);
+int lcp_gj_inv_f64(const double* K, double* out, int B, int P, int PB,
+                   int CS, void* s) {
+  return launch_scalar<double>(K, out, B, P, PB, CS, s);
+}
+// Registers and local bytes a thread, and dynamic shared bytes a CTA, of
+// the scalar kernel at bucket PB: out = {regs, local, shared}.
+int lcp_gj_inv_attrs(int f64, int PB, int* out) {
+  clear_last_error();
+  return f64 ? scalar_attrs<double>(PB, out) : scalar_attrs<float>(PB, out);
 }
 }

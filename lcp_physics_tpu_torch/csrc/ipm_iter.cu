@@ -15,32 +15,46 @@
 //
 // The TPU kernel keeps 128 worlds on the vector lanes, computes each
 // world's matvecs as one outer-batch MXU product with a diagonal
-// extraction, and skips a tile once all its lanes are done.  Here each world
-// has its own CTA and a world already done copies its iterate, best iterate
-// and state through; that is the same result, because a done world is
-// frozen (only its stall count, which nothing reads, would move).
+// extraction, and skips a tile once all its lanes are done.  Here a world
+// already done copies its iterate, best iterate and state through; that is
+// the same result, because a done world is frozen (only its stall count,
+// which nothing reads, would move).
 //
-// What bounds it on an H100: bytes.  Per world it reads the K2 x K2 block
-// of the inverse twice (predictor and corrector) and Ghat2 (K2 x n) four
-// times (Ghat2 z, Ghat2^T lam, Ghat2 Q^-1 r1, Ghat2^T wk); at the dense
-// 64-circle scene (K2 = 256, n = 192, f32) that is 0.5 MB + 0.75 MB, about
-// 2.7 times the 0.45 MB a single read of each would need, and far more than
-// L2 holds at B = 256.  The arithmetic is 2 flops per byte read.  The design
-// keeps every vector of the world (X, residuals, directions, scalars, about
-// 42 KB at f32) in shared memory and streams the two matrices from device
-// memory: row products (Ghat2 x, inverse x) give each row to one warp, lanes
-// on consecutive columns, four rows per pass so that each lane has several
-// loads in flight, shuffle-reduced; transposed products (Ghat2^T x) give
-// each column to one thread, looping over rows, so that neighbouring
-// threads read neighbouring addresses.  Block reductions propagate NaN like
-// jnp.max/jnp.min, which the divergence guard relies on.  Full f32 or f64
-// throughout: the solve products and the residual products share one
-// precision.
+// What bounds it on an H100: bytes.  An iteration multiplies by the K2 x K2
+// block of the inverse twice (predictor and corrector) and by Ghat2 (K2 x
+// n) four times (Ghat2 z, Ghat2^T lam, Ghat2 Q^-1 r1, Ghat2^T wk); at the
+// dense 64-circle scene (K2 = 256, n = 192, f32) the two matrices are
+// 0.45 MB a world, and the arithmetic is 2 flops per byte read once.  The
+// first design gave each column of the transposed product one thread (192
+// of 256 threads busy, 8 loads in flight each) with about ten
+// barrier-separated phases between the products: 0.27 ms at B = 256, 7.3x
+// its bound.  Here one CTA a world keeps the world's vectors (X,
+// residuals, directions, scalars, about 42 KB at that shape) in shared
+// memory and reads both matrices from device memory (L2) for each
+// product.  Row products give a row to a warp, eight rows a pass, with
+// 16-byte loads where the rows allow them; the transposed product gives a
+// warp 32 columns, each lane 4 of them at stride 8 and a quarter of the
+// rows, so that a lane keeps 32 loads in flight and the four quarters meet
+// in two shuffles.  Its shared memory is the vectors' alone, which
+// fused_iter_supported counts, so it runs every admitted shape (n up to
+// about 2,800 at f64); Ghat2 z and Ghat2^T lam stay two passes, since one
+// pass would need a warp's column partials, past that count.  A cluster
+// variant that held the matrices in the shared memory of a cluster of
+// CTAs, read once a launch by bulk copies, ran 0.42 ms at B = 256: a
+// world's vectors in every CTA of its cluster left 33 worlds on the card
+// at once (PERF.md).
+//
+// Full f32 or f64 throughout: the solve products and the residual
+// products share one precision.
+
+#include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 
 constexpr int THREADS = 256;
-constexpr int ROWS_PER_PASS = 4;
+constexpr int ROWS_PER_PASS = 8;  // a row product from device memory
+constexpr int SMEM_LIMIT = 232448;  // shared bytes one CTA may use (sm_90)
 
 template <typename T>
 struct IterArgs {
@@ -95,50 +109,125 @@ __host__ __device__ inline size_t carve(Smem<T>* S, T* base, int n, int m,
   return off;
 }
 
-// out[r] = sum_j M[r * ld + j] x[j], r < rows, j < cols: a warp per row,
-// ROWS_PER_PASS rows per pass, lanes on consecutive columns.
-template <typename T>
-__device__ void rows_dot(const T* __restrict__ M, int ld, int rows, int cols,
-                         const T* x, T* out) {
+// out[r] = sum_j M[r * ld + j] x[j], r < rows, j < cols, from device
+// memory: a warp per row, ROWS_PER_PASS rows per pass, lanes on
+// consecutive columns, 16 bytes a lane a load where the rows allow it (VN
+// = 16 / sizeof(T) entries).
+template <typename T, int VN>
+__device__ void rows_dot_v(const T* __restrict__ M, int ld, int rows,
+                           int cols, const T* x, T* out) {
+  using V = typename std::conditional<VN == 1, T,
+                                      typename Vec16<T>::type>::type;
+  constexpr int R = ROWS_PER_PASS;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;
-  for (int r0 = warp * ROWS_PER_PASS; r0 < rows; r0 += nw * ROWS_PER_PASS) {
-    T acc[ROWS_PER_PASS];
+  for (int r0 = warp * R; r0 < rows; r0 += nw * R) {
+    T acc[R];
 #pragma unroll
-    for (int u = 0; u < ROWS_PER_PASS; ++u) acc[u] = T(0);
+    for (int u = 0; u < R; ++u) acc[u] = T(0);
 #pragma unroll 2
-    for (int j = lane; j < cols; j += 32) {
-      const T xj = x[j];
+    for (int j = lane * VN; j < cols; j += 32 * VN) {
+      T xj[VN];
 #pragma unroll
-      for (int u = 0; u < ROWS_PER_PASS; ++u)
-        if (r0 + u < rows) acc[u] += M[(size_t)(r0 + u) * ld + j] * xj;
+      for (int k = 0; k < VN; ++k) xj[k] = x[j + k];
+#pragma unroll
+      for (int u = 0; u < R; ++u)
+        if (r0 + u < rows) {
+          const V v =
+              *reinterpret_cast<const V*>(M + (size_t)(r0 + u) * ld + j);
+          const T* e = reinterpret_cast<const T*>(&v);
+#pragma unroll
+          for (int k = 0; k < VN; ++k) acc[u] += e[k] * xj[k];
+        }
     }
 #pragma unroll
-    for (int u = 0; u < ROWS_PER_PASS; ++u) {
+    for (int u = 0; u < R; ++u) {
       const T v = warp_sum(acc[u]);
       if (lane == 0 && r0 + u < rows) out[r0 + u] = v;
     }
   }
 }
 
-// out[j] = sum_r M[r * ld + j] x[r], j < cols, r < rows: a thread per
-// column.
+template <typename T>
+__device__ void rows_dot(const T* __restrict__ M, int ld, int rows, int cols,
+                         const T* x, T* out) {
+  constexpr int VN = 16 / (int)sizeof(T);
+  if ((reinterpret_cast<uintptr_t>(M) | ((size_t)ld * sizeof(T))) % 16 == 0
+      && cols % VN == 0)
+    rows_dot_v<T, VN>(M, ld, rows, cols, x, out);
+  else
+    rows_dot_v<T, 1>(M, ld, rows, cols, x, out);
+}
+
+// out[j] = sum_r M[r * ld + j] x[r], j < cols, r < rows, from device
+// memory: a warp per 32 columns; lane (q, c) = (lane / 8, lane % 8) sums
+// columns c, c + 8, c + 16, c + 24 of the tile over rows q, q + 4, ...
+// (8-lane groups read 8 consecutive entries of a row; 8 rows unrolled, so
+// 32 loads in flight a lane), then the four row quarters meet in two
+// shuffles.
+constexpr int COLS_U = 4;
 template <typename T>
 __device__ void cols_dot(const T* __restrict__ M, int ld, int rows, int cols,
                          const T* x, T* out) {
-  for (int j = threadIdx.x; j < cols; j += blockDim.x) {
-    T acc = T(0);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  const int rq = lane >> 3, cc = lane & 7;
+  for (int c0 = warp * 32; c0 < cols; c0 += nw * 32) {
+    T acc[COLS_U];
+#pragma unroll
+    for (int u = 0; u < COLS_U; ++u) acc[u] = T(0);
 #pragma unroll 8
-    for (int r = 0; r < rows; ++r) acc += M[(size_t)r * ld + j] * x[r];
-    out[j] = acc;
+    for (int r = rq; r < rows; r += 4) {
+      const T xr = x[r];
+#pragma unroll
+      for (int u = 0; u < COLS_U; ++u) {
+        const int j = c0 + cc + 8 * u;
+        if (j < cols) acc[u] += M[(size_t)r * ld + j] * xr;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < COLS_U; ++u) {
+      T v = acc[u];
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      const int j = c0 + cc + 8 * u;
+      if (rq == 0 && j < cols) out[j] = v;
+    }
   }
 }
 
+// A world's products, both matrices from device memory; each ends with
+// its result in shared memory and a barrier behind it.
+template <typename T>
+struct Mats {
+  const T *inv, *Gh;
+  int ldi, K2, n;
+  // Ghat2 z and Ghat2^T lamk
+  __device__ void ghat_z_lamk(const T* z, const T* lamk, T* y0, T* rx) {
+    rows_dot(Gh, n, K2, n, z, y0);
+    cols_dot(Gh, n, K2, n, lamk, rx);
+    __syncthreads();
+  }
+  __device__ void ghat_rows(const T* x, T* out) {
+    rows_dot(Gh, n, K2, n, x, out);
+    __syncthreads();
+  }
+  __device__ void inv_rows(const T* x, T* out) {
+    rows_dot(inv, ldi, K2, K2, x, out);
+    __syncthreads();
+  }
+  __device__ void ghat_cols(const T* x, T* out) {
+    cols_dot(Gh, n, K2, n, x, out);
+    __syncthreads();
+  }
+};
+
+// The iteration over a world's vectors in shared memory.
 template <typename T>
 struct Iter {
   const IterArgs<T>& a;
   Smem<T>& S;
-  const T *inv, *Gh;
+  Mats<T>& mat;
   int n, m, q, C, K2, mg;
   T sq2, rcount;
 
@@ -162,8 +251,7 @@ struct Iter {
     for (int k = tid; k < q; k += nt)
       S.rhs2[2 * C + k] = y ? ry[k] - y[2 * C + k] : T(0);
     __syncthreads();
-    rows_dot(inv, a.Kp, K2, K2, S.rhs2, wk);
-    __syncthreads();
+    mat.inv_rows(S.rhs2, wk);
     for (int i = tid; i < C; i += nt) {
       const T w_c = wk[i], w_v = wk[C + i];
       const T w_u =
@@ -207,9 +295,8 @@ struct Iter {
     }
     for (int k = tid; k < q; k += nt) S.lamk[2 * C + k] = nu[k];
     __syncthreads();
-    rows_dot(Gh, n, K2, n, z, S.y0);       // [G_c z; sqrt2 G_f1 z; A z]
-    cols_dot(Gh, n, K2, n, S.lamk, S.rx);  // Ghat2^T [lam_c; lam_v; nu]
-    __syncthreads();
+    // [G_c z; sqrt2 G_f1 z; A z] and Ghat2^T [lam_c; lam_v; nu], one pass
+    mat.ghat_z_lamk(z, S.lamk, S.y0, S.rx);
     T part_mu = T(0), part_res = T(0);
     for (int j = tid; j < n; j += nt) {
       const T r = (T(1) / S.qinv[j]) * z[j] + S.p[j] + S.rx[j];
@@ -254,7 +341,7 @@ struct Iter {
     const bool stalled = lim > 0 && stall >= T(lim) && a.it >= lim + 2;
     const bool new_done = merit < a.tol || stalled;
     for (int e = tid; e < L; e += nt)
-      a.bestout[w * L + e] = improved ? S.X[e] : a.bestin[w * L + e];
+        a.bestout[w * L + e] = improved ? S.X[e] : a.bestin[w * L + e];
 
     // ---- rotated Schur scalars, predictor rhs -----------------------
     for (int r = tid; r < m; r += nt) {
@@ -279,8 +366,7 @@ struct Iter {
       S.delta[i] = T(0.5) * (a1 - a2);
       S.g_u[i] = T(0.5) * (a1 + a2) + cf;
     }
-    rows_dot(Gh, n, K2, n, S.tn, S.y);     // Ghat2 (Q^-1 r1)
-    __syncthreads();
+    mat.ghat_rows(S.tn, S.y);              // Ghat2 (Q^-1 r1)
 
     // ---- predictor --------------------------------------------------
     kkt_parts(S.r2, S.y, S.ry, S.wk_a, S.dlam_a);
@@ -312,8 +398,7 @@ struct Iter {
       S.ds[r] = -S.r4c[r] / S.lam_safe[r] - S.d_inv[r] * dl;
     }
     __syncthreads();
-    cols_dot(Gh, n, K2, n, S.wk, S.dz);    // Ghat2^T wk
-    __syncthreads();
+    mat.ghat_cols(S.wk, S.dz);             // Ghat2^T wk
     for (int j = tid; j < n; j += nt) S.dz[j] = S.qinv[j] * (S.r1[j] - S.dz[j]);
     const T alpha = T(0.99) * max_step(S.ds, S.dlam);
 
@@ -359,20 +444,12 @@ struct Iter {
   }
 };
 
+// Loads the world's vectors into S and returns the count of real rows
+// (at least 1).  Every thread; ends with a barrier.
 template <typename T>
-__global__ void __launch_bounds__(THREADS) ipm_iter_kernel(IterArgs<T> a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int n = a.n, m = a.m, q = a.q, C = a.C, K2 = 2 * C + q;
+__device__ T load_world(const IterArgs<T>& a, Smem<T>& S, size_t w) {
+  const int n = a.n, m = a.m, q = a.q, C = a.C;
   const int L = n + 2 * m + q;
-  const size_t w = blockIdx.x;
-  if (a.statein[w * 4 + 1] > T(0.5)) {  // done: frozen, copied through
-    copy_vec(a.Xout + w * L, a.Xin + w * L, L);
-    copy_vec(a.bestout + w * L, a.bestin + w * L, L);
-    copy_vec(a.stateout + w * 4, a.statein + w * 4, 4);
-    return;
-  }
-  Smem<T> S;
-  carve<T>(&S, reinterpret_cast<T*>(smem_raw), n, m, q, C);
   copy_vec(S.X, a.Xin + w * L, L);
   copy_vec(S.qinv, a.qinv + w * n, n);
   copy_vec(S.p, a.p + w * n, n);
@@ -385,21 +462,45 @@ __global__ void __launch_bounds__(THREADS) ipm_iter_kernel(IterArgs<T> a) {
   T cnt = T(0);
   for (int r = threadIdx.x; r < m; r += blockDim.x) cnt += S.rmask[r];
   cnt = block_reduce(cnt, S.red, SumOp());
-  Iter<T> iter{a, S, a.inv + w * a.Kp * a.Kp, a.Ghat + w * K2 * n,
-               n, m, q, C, K2, 3 * C, sqrt(T(2)), cnt > T(1) ? cnt : T(1)};
+  return cnt > T(1) ? cnt : T(1);
+}
+
+// A done world is frozen: one CTA copies it through.
+template <typename T>
+__device__ void copy_through(const IterArgs<T>& a, size_t w) {
+  const int L = a.n + 2 * a.m + a.q;
+  copy_vec(a.Xout + w * L, a.Xin + w * L, L);
+  copy_vec(a.bestout + w * L, a.bestin + w * L, L);
+  copy_vec(a.stateout + w * 4, a.statein + w * 4, 4);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS) ipm_iter_kernel(IterArgs<T> a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int C = a.C, K2 = 2 * C + a.q;
+  const size_t w = blockIdx.x;
+  if (a.statein[w * 4 + 1] > T(0.5)) {
+    copy_through(a, w);
+    return;
+  }
+  Smem<T> S;
+  carve<T>(&S, reinterpret_cast<T*>(smem_raw), a.n, a.m, a.q, C);
+  const T rcount = load_world(a, S, w);
+  Mats<T> mat{a.inv + w * a.Kp * a.Kp, a.Ghat + w * K2 * a.n, a.Kp, K2,
+              a.n};
+  Iter<T> iter{a, S, mat, a.n, a.m, a.q, C, K2, 3 * C, sqrt(T(2)), rcount};
   iter.run(w);
 }
 
-template <typename T>
-static size_t smem_bytes(int n, int m, int q, int C) {
-  return carve<T>(nullptr, nullptr, n, m, q, C) * sizeof(T);
-}
-
-// The wrapper (ops/ipm_iter.py) checks the size against the card's limit.
+// The wrapper (ops/ipm_iter.py) checks the size against the card's limit;
+// the entry refuses an inverse narrower than K2 and a size past the limit.
 template <typename T>
 static int launch(IterArgs<T> a, int B, void* stream) {
   clear_last_error();
-  const size_t smem = smem_bytes<T>(a.n, a.m, a.q, a.C);
+  const size_t smem =
+      carve<T>(nullptr, nullptr, a.n, a.m, a.q, a.C) * sizeof(T);
+  if (a.Kp < 2 * a.C + a.q || smem > (size_t)SMEM_LIMIT)
+    return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
       ipm_iter_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -430,7 +531,20 @@ LCP_IPM_ITER_ENTRY(lcp_ipm_iter_f64, double)
 
 // Shared memory one world needs.
 long long lcp_ipm_iter_smem_bytes(int n, int m, int q, int C, int f64) {
-  return f64 ? (long long)smem_bytes<double>(n, m, q, C)
-             : (long long)smem_bytes<float>(n, m, q, C);
+  return f64 ? (long long)(carve<double>(nullptr, nullptr, n, m, q, C) * 8)
+             : (long long)(carve<float>(nullptr, nullptr, n, m, q, C) * 4);
+}
+
+// Registers and local bytes a thread of the kernel: out = {regs, local}.
+int lcp_ipm_iter_attrs(int f64, int* out) {
+  clear_last_error();
+  cudaFuncAttributes fa;
+  const cudaError_t e =
+      f64 ? cudaFuncGetAttributes(&fa, ipm_iter_kernel<double>)
+          : cudaFuncGetAttributes(&fa, ipm_iter_kernel<float>);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = fa.numRegs;
+  out[1] = (int)fa.localSizeBytes;
+  return 0;
 }
 }

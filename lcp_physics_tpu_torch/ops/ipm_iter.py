@@ -208,6 +208,8 @@ def _lib():
             f.restype = I
         f = lib.lcp_ipm_iter_smem_bytes
         f.argtypes, f.restype = [I] * 5, ctypes.c_longlong
+        f = lib.lcp_ipm_iter_attrs
+        f.argtypes, f.restype = [I, ctypes.POINTER(I)], I
         lib._lcp_typed = True
     return lib
 

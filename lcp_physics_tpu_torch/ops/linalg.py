@@ -16,7 +16,8 @@ with the JAX package's boundary:
   ``gj_inv_blocked`` at float32, under a two-level split of each
   128-panel into two 64-panels, and the scalar Gauss-Jordan kernel
   ``gj_inv`` at float64 or when ``exact`` is asked for (both in
-  ``csrc/gj_inv.cu``).  The panel products around them are
+  ``csrc/gj_inv.cu``; the scalar kernel spreads a world over a
+  thread-block cluster, ``gj_shape``).  The panel products around them are
   ``torch.matmul`` in the input dtype, as the JAX package leaves them to
   XLA;
 * explicit inverse (``MAX_LANE_N`` < n, at most ``INV_MAX_PANELS``
@@ -48,6 +49,9 @@ LANE_CTA_THREADS = 128
 PANEL = 128
 MAX_BLOCKED_N = 1536
 GJ_BLOCK = 16
+GJ_BUCKETS = (32, 64, 96, 128)   # csrc/gj_inv.cu's scalar kernel sizes
+GJ_ROWS = 32                     # rows of a panel one CTA of it holds
+GJ_THREADS = 256
 LAUNCHES = {"lu": 0, "solve": 0, "solve_t": 0, "gj_inv_blocked": 0,
             "gj_inv": 0}
 
@@ -90,6 +94,27 @@ def lane_shape(n, itemsize, solve=False):
                          LANE_CTA_THREADS, 0)
     threads = -(-NB // 32) * 32
     return LaneShape(NB, threads, 1, threads, 2 * (NB * itemsize + 16))
+
+
+class GjShape(NamedTuple):
+    bucket: int           # compile-time size PB >= P
+    cluster: int          # CTAs a world (a thread-block cluster)
+    cta_threads: int
+    smem: int             # dynamic shared bytes a CTA
+
+
+def gj_shape(P, itemsize):
+    """The launch of csrc/gj_inv.cu's scalar kernel (K5) for P x P panels:
+    the least bucket PB of ``GJ_BUCKETS`` that holds P, a cluster of
+    PB / GJ_ROWS CTAs a world, each of 256 threads holding GJ_ROWS rows,
+    with in shared memory its finished rows, a copy of another CTA's
+    (GJ_ROWS x PB each) and two pivot rows with their reciprocals."""
+    PB = next((pb for pb in GJ_BUCKETS if P <= pb), None)
+    if PB is None or P < 1:
+        raise ValueError(f"the scalar panel kernel takes 1 <= P <= "
+                         f"{GJ_BUCKETS[-1]}, got {P}")
+    smem = (2 * GJ_ROWS * PB + 2 * PB + 2) * itemsize
+    return GjShape(PB, PB // GJ_ROWS, GJ_THREADS, smem)
 
 
 def blocked_path(n):
@@ -222,7 +247,9 @@ def _gj_lib():
         lib.lcp_gj_inv_blocked_f32.restype = I
         for ct in ("f32", "f64"):
             f = getattr(lib, f"lcp_gj_inv_{ct}")
-            f.argtypes, f.restype = [P, P, I, I, P], I
+            f.argtypes, f.restype = [P, P, I, I, I, I, P], I
+        lib.lcp_gj_inv_attrs.argtypes = [I, I, ctypes.POINTER(I)]
+        lib.lcp_gj_inv_attrs.restype = I
         lib._lcp_typed = True
     return lib
 
@@ -296,16 +323,18 @@ def gj_inv_blocked(K):
 
 def gj_inv(K):
     """Scalar Gauss-Jordan inverse of (B, P, P) panels, float32 or float64:
-    the CUDA kernel on a GPU tensor, the plain version on a CPU tensor."""
+    the CUDA kernel (a cluster of CTAs a world, ``gj_shape``) on a GPU
+    tensor, the plain version on a CPU tensor."""
     B, P = _check_panels(K, "gj_inv")
     if not K.is_cuda:
         return gj_inv_ref(K)
     K = K.contiguous()
     _check_cuda("gj_inv", K)
     lib = _gj_lib()
+    shape = gj_shape(P, K.element_size())
     out = torch.empty_like(K)
     rc = getattr(lib, f"lcp_gj_inv_{_CT[K.dtype]}")(
-        _build.ptr(K), _build.ptr(out), B, P,
+        _build.ptr(K), _build.ptr(out), B, P, shape.bucket, shape.cluster,
         _build.stream_ptr(lib, K.device))
     _build.check(lib, rc, "gj_inv")
     LAUNCHES["gj_inv"] += 1

@@ -9,8 +9,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (GJ_RES_RATIO, engine_instance, inv_residual,
-                        kkt_batch)
+from chip_smoke import (GJ_RES_RATIO, engine_instance, engine_iter_case,
+                        inv_residual, kkt_batch, ulp_tensor, world_rel)
 from lcp_physics_tpu_torch.lcp.cone import ConeF
 from lcp_physics_tpu_torch.lcp.pdipm import _dtype_consts, initial_point
 from lcp_physics_tpu_torch.ops import ipm, linalg
@@ -378,3 +378,139 @@ def test_inv_factor_on_the_card_matches_plain(dev, n, dtype, tol):
         x = linalg.plu_solve(fac, r.to(dev), trans).cpu()
         res = torch.einsum("bij,bj->bi", Kop.double(), x.double()) - r
         assert float(res.abs().max() / r.abs().max()) <= 10 * tol
+
+
+# every bucket edge of csrc/gj_inv.cu's scalar kernel (K5) and the tests' 40
+GJ_EDGES = [1, 15, 16, 17, 31, 32, 33, 40, 63, 64, 65, 96, 97, 127, 128]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.float64, 1e-10)])
+@pytest.mark.parametrize("P", GJ_EDGES)
+def test_gj_inv_kernel_bucket_edges(dev, P, dtype, tol):
+    """K5 at every bucket edge (clusters of 1 to 4 CTAs a world) and
+    batches around a cluster-count multiple, per matrix against plain and
+    by ||K X - I|| within GJ_RES_RATIO of plain's."""
+    for B in (1, 31, 32, 33, 257):
+        rng = np.random.default_rng(1000 * P + B)
+        K = torch.tensor(kkt_batch(rng, B, P), dtype=dtype, device=dev)
+        X, Xr = linalg.gj_inv(K), linalg.gj_inv_ref(K)
+        err = (X - Xr).abs().amax((1, 2)) / Xr.abs().amax((1, 2))
+        assert float(err.max()) <= tol, (B, float(err.max()))
+        check_residual(K, X, Xr)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_gj_inv_kernel_non_finite_panel(dev, dtype):
+    """A NaN in one panel: K5's output is non-finite where plain's is, and
+    the other panels of the batch are untouched by it."""
+    rng = np.random.default_rng(3)
+    K = torch.tensor(kkt_batch(rng, 5, 100), dtype=dtype, device=dev)
+    K[2, 70, 3] = float("nan")
+    X, Xr = linalg.gj_inv(K), linalg.gj_inv_ref(K)
+    assert torch.equal(torch.isfinite(X), torch.isfinite(Xr))
+    keep = [0, 1, 3, 4]
+    assert torch.equal(X[keep], linalg.gj_inv(K[keep].contiguous()))
+
+
+def test_gj_shape_matches_the_kernel(dev):
+    """linalg.gj_shape's shared bytes equal the C entry's for every
+    bucket, and a bucket or cluster other than gj_shape's is refused."""
+    import ctypes
+    lib = linalg._gj_lib()
+    out = (ctypes.c_int * 3)()
+    for f64 in (0, 1):
+        for pb in linalg.GJ_BUCKETS:
+            assert lib.lcp_gj_inv_attrs(f64, pb, out) == 0
+            assert out[2] == linalg.gj_shape(pb, 8 if f64 else 4).smem
+    K = torch.eye(40, device=dev).expand(2, 40, 40).contiguous()
+    o = torch.empty_like(K)
+    s = linalg._build.stream_ptr(lib, K.device)
+    for pb, cs in ((32, 1), (64, 1), (96, 3), (64, 2)):
+        rc = lib.lcp_gj_inv_f32(linalg._build.ptr(K), linalg._build.ptr(o),
+                                2, 40, pb, cs, s)
+        assert (rc == 0) == ((pb, cs) == (64, 2))
+
+
+def test_iter_smem_matches_the_kernel(dev):
+    """ops.ipm_iter.smem_bytes equals the C entry's count on every admitted
+    shape of a grid, and the wrapper refuses an inverse narrower than K2."""
+    import ctypes
+    from lcp_physics_tpu_torch.ops import ipm_iter
+    lib = ipm_iter._lib()
+    for n in (1, 63, 65, 191, 301, 701, 1201, 2001, 2800):
+        for C, q in ((44, 1), (52, 0), (48, 8), (71, 2), (128, 0), (124, 8)):
+            for item in (4, 8):
+                if ipm_iter.fused_iter_supported(C, q, n, item):
+                    assert ipm_iter.smem_bytes(n, C, q, item) == \
+                        lib.lcp_ipm_iter_smem_bytes(n, 4 * C, q, C,
+                                                    int(item == 8))
+    out = (ctypes.c_int * 2)()
+    for f64 in (0, 1):
+        assert lib.lcp_ipm_iter_attrs(f64, out) == 0
+        assert out[0] > 0
+    vecs, X0, fac, inv, consts = engine_iter_case(torch, dev, 2, 65, 44, 1,
+                                                  torch.float32, 7)
+    state = ipm_iter.initial_state(2, 10, torch.float32, dev)
+    narrow = inv[:, :88, :88].contiguous()
+    with pytest.raises(ValueError):
+        ipm_iter.iteration(narrow, *vecs, X0, X0, state, 0, C=44,
+                           consts=consts, tol=1e-8, not_improved_lim=3,
+                           stall_rtol=0.0)
+
+
+# (C, q, n): K2 = 89, 104, 144, 256 with q = 0, 1, 2, 8; odd n leaves
+# Ghat2's rows off 16-byte boundaries (the scalar loads), n = 1201 takes
+# the transposed product over many column tiles.  (124, 8, 64) is a Schur
+# system of rank 64 in 256 rows: there the plain f32 run itself moves by
+# ~4e-3 under one ulp of p (test_torch_ipm_iter.py::
+# test_plain_f32_one_ulp_spread), so f32 capped runs are held to
+# max(1e-3, 10x plain's own one-ulp spread), as chip_smoke.py holds the
+# touching line's gradients.
+ITER_CASES = [(44, 1, 63), (52, 0, 64), (48, 8, 65), (71, 2, 129),
+              (128, 0, 191), (124, 8, 64), (124, 8, 193), (128, 0, 1201)]
+
+
+@pytest.mark.parametrize("dtype,lims", [
+    (torch.float32, (1e-3, 1e-3)),
+    (torch.float64, (1e-10, 1e-8))])
+@pytest.mark.parametrize("C,q,n", ITER_CASES)
+def test_ipm_iter_kernel_shapes_match_plain(dev, C, q, n, dtype, lims):
+    """K6 against its plain iteration: one iteration from the same inputs
+    per world, on a batch of 13 worlds with done and live ones mixed (the
+    done ones copied through bit for bit), then runs capped at 3
+    iterations (z and lam per world)."""
+    from lcp_physics_tpu_torch.ops import ipm_iter
+    vecs, X0, fac, inv, consts = engine_iter_case(torch, dev, 13, n, C, q,
+                                                  dtype, C + q + n)
+    Bn, m = X0.shape[0], 4 * C
+    state = ipm_iter.initial_state(Bn, 10, dtype, dev)
+    state[::3, 1] = 1.0                      # every third world done
+    bestX = X0 + 1.0
+    kw = dict(C=C, consts=consts, tol=1e-8, not_improved_lim=3,
+              stall_rtol=0.0)
+    a = (inv, *vecs, X0, bestX, state, 2)
+    before = ipm_iter.LAUNCHES["ipm_iter"]
+    got = ipm_iter.iteration(*a, **kw)
+    assert ipm_iter.LAUNCHES["ipm_iter"] == before + 1
+    ref = ipm_iter._iter_ref(*a, **kw)
+    for g, r, x0 in zip(got, ref, (X0, bestX, state)):
+        assert torch.equal(g[::3], x0[::3])
+        err = (g - r).abs().amax(-1) / r.abs().amax(-1).clamp_min(1e-300)
+        assert float(err.max()) <= lims[0]
+    cap = dict(C=C, consts=consts, max_iter=3, tol=0.0, not_improved_lim=0,
+               inv_raw=fac.iter_inv_raw)
+    g3 = ipm_iter.fused_iter_ipm(*vecs, X0, **cap)
+    r3 = ipm_iter.fused_iter_ipm_ref(*vecs, X0, **cap)
+    lim = lims[1]
+    if dtype == torch.float32:
+        u3 = ipm_iter.fused_iter_ipm_ref(vecs[0], vecs[1],
+                                         ulp_tensor(torch, vecs[2]),
+                                         *vecs[3:], X0, **cap)
+    for sl in (slice(0, n), slice(n + m, n + 2 * m)):
+        r_ = r3[0][:, sl]
+        if dtype == torch.float32:
+            lim = max(lims[1], 10 * float(world_rel(u3[0][:, sl], r_).max()))
+        err = world_rel(g3[0][:, sl], r_)
+        assert float(err.max()) <= lim, (float(err.max()), lim)
+    assert torch.equal(g3[3], r3[3])

@@ -192,3 +192,71 @@ def test_fused_iter_gradients_match_jax(fuse_iter):
     assert same.sum() >= int(0.8 * Bs)
     np.testing.assert_allclose(t[3].grad.numpy()[same],
                                np.asarray(g_j)[same], rtol=1e-4, atol=1e-5)
+
+
+def _supported_rule(C, q, n, itemsize):
+    """fused_iter_supported's rule written out: 88 < ru(K2, 8),
+    K2 <= 256, and the world's vectors within 232,448 bytes."""
+    m, K2 = 4 * C, 2 * C + q
+    elems = (n + 2 * m + q) + 6 * n + 11 * m + 3 * max(q, 1) + 7 * C \
+        + 6 * K2 + 32
+    return -(-K2 // 8) * 8 > 88 and K2 <= 256 and elems * itemsize <= 232448
+
+
+def test_fused_iter_supported_admits_the_same_shapes():
+    grid = [(C, q, n, item) for C in (40, 44, 45, 52, 64, 100, 124, 128, 129)
+            for q in (0, 1, 2, 8, 40) for n in (1, 64, 191, 1201, 2800, 3689,
+                                                3690, 5000, 9000)
+            for item in (4, 8)]
+    for g in grid:
+        assert ipm_iter.fused_iter_supported(*g) == _supported_rule(*g), g
+
+
+# K6's card-test shapes (tests/test_torch_cuda.py::ITER_CASES)
+ITER_CASES = [(44, 1, 63), (52, 0, 64), (48, 8, 65), (71, 2, 129),
+              (128, 0, 191), (124, 8, 64), (124, 8, 193), (128, 0, 1201)]
+
+
+@pytest.mark.parametrize("C,q,n", ITER_CASES)
+def test_plain_f32_one_ulp_spread(C, q, n):
+    """The plain f32 loop capped at 3 iterations, at p and at p moved by
+    one ulp, on the card test's instances (13 worlds): the spread of z
+    stays within 1e-4 on every shape but (124, 8, 64), a Schur system of
+    rank 64 in 256 rows, where it passes 1e-3.  The card test holds K6's
+    capped f32 runs to max(1e-3, 10x this spread)."""
+    from chip_smoke import engine_iter_case, ulp_tensor, world_rel
+    vecs, X0, fac, _, consts = engine_iter_case(
+        torch, torch.device("cpu"), 13, n, C, q, torch.float32, C + q + n)
+    cap = dict(C=C, consts=consts, max_iter=3, tol=0.0, not_improved_lim=0,
+               inv_raw=fac.iter_inv_raw)
+    r3 = ipm_iter.fused_iter_ipm(*vecs, X0, **cap)
+    u3 = ipm_iter.fused_iter_ipm(vecs[0], vecs[1], ulp_tensor(torch, vecs[2]),
+                                 *vecs[3:], X0, **cap)
+    spread = float(world_rel(u3[0][:, :n], r3[0][:, :n]).max())
+    if (C, q, n) == (124, 8, 64):
+        assert spread > 1e-3
+    else:
+        assert spread <= 1e-4
+
+
+@pytest.mark.parametrize("C,q,n", [(44, 1, 63), (71, 2, 129), (124, 8, 64)])
+def test_iteration_copies_done_worlds_through(C, q, n):
+    """On CPU tensors ``iteration`` runs the plain version (no launch): a
+    world already done keeps X, bestX and its state bit for bit, and a live
+    world moves."""
+    from chip_smoke import engine_iter_case
+    vecs, X0, _, inv, consts = engine_iter_case(
+        torch, torch.device("cpu"), 7, n, C, q, torch.float64, C + q + n)
+    state = ipm_iter.initial_state(7, 10, torch.float64, X0.device)
+    state[::3, 1] = 1.0
+    bestX = X0 + 1.0
+    before = dict(ipm_iter.LAUNCHES)
+    got = ipm_iter.iteration(inv, *vecs, X0, bestX, state, 2, C=C,
+                             consts=consts, tol=1e-8, not_improved_lim=3,
+                             stall_rtol=0.0)
+    assert ipm_iter.LAUNCHES == before
+    for g, x0 in zip(got, (X0, bestX, state)):
+        assert torch.equal(g[::3], x0[::3])
+    live = [i for i in range(7) if i % 3]
+    assert not torch.equal(got[0][live], X0[live])
+    assert bool(torch.isfinite(got[0]).all())

@@ -89,3 +89,39 @@ def test_lane_launch_shape(n, NB, lanes):
         assert fac.world_threads * fac.worlds_per_cta <= fac.cta_threads
     with pytest.raises(ValueError):
         linalg.lane_shape(linalg.MAX_LANE_N + 1, 4)
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_gj_launch_shape(itemsize):
+    """csrc/gj_inv.cu's scalar kernel (K5): the least bucket of 32, 64, 96,
+    128 that holds P, a cluster of bucket / 32 CTAs a world, 256 threads a
+    CTA, and in shared memory two 32-row strips and two pivot rows with
+    their reciprocals, for every P from 1 to 128."""
+    for P in range(1, 129):
+        s = linalg.gj_shape(P, itemsize)
+        PB = s.bucket
+        assert PB == -(-P // 32) * 32 and PB in linalg.GJ_BUCKETS
+        assert s.cluster == PB // 32 and s.cta_threads == 256
+        assert s.smem == (64 * PB + 2 * PB + 2) * itemsize
+        assert s.smem <= 232448
+    for P in (0, 129):
+        with pytest.raises(ValueError):
+            linalg.gj_shape(P, itemsize)
+
+
+@pytest.mark.parametrize("P", [1, 17, 40, 65, 127])
+def test_gj_identity_padding_is_exact(P):
+    """Padding a panel with the identity to its K5 bucket and inverting it
+    by the plain scalar Gauss-Jordan gives the unpadded inverse bit for bit
+    in the leading P x P block (and the identity beside it): a pivot on a
+    padded row subtracts 0 * x from the real entries."""
+    rng = np.random.default_rng(P)
+    K = torch.tensor(kkt_batch(rng, 3, P), dtype=torch.float64)
+    PB = linalg.gj_shape(P, 8).bucket
+    Kp = torch.eye(PB, dtype=torch.float64).repeat(3, 1, 1)
+    Kp[:, :P, :P] = K
+    X, Xp = linalg.gj_inv_ref(K), linalg.gj_inv_ref(Kp)
+    assert torch.equal(Xp[:, :P, :P], X)
+    assert torch.equal(Xp[:, P:, P:], torch.eye(PB - P, dtype=torch.float64)
+                       .expand(3, -1, -1))
+    assert not Xp[:, :P, P:].any() and not Xp[:, P:, :P].any()

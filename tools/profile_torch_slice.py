@@ -5,8 +5,12 @@ benchmark scene, B = 4096 worlds, float32) through ``make_batched_step``,
 10 steps after 3 warm-up steps.  With ``--train`` it runs chip_smoke.py's
 training slice instead: value and gradients of mean(p^2) through the
 8-step rollout of the dense 64-circle grid (B = 256, float32), once after
-one warm-up.  With ``--lcp`` it runs path (c): ``lcp_solve(fric_pair=False)``
-forward on the benchmark scene's 4096 first-step LCPs (chip_smoke.py's
+one warm-up; ``--train64`` the same at float64 (B = 32, seed 2: the scalar
+panel kernel K5).  With ``--fuse-iter`` it runs path (b): the dense
+scene's 8-step forward (B = 256, float32) with ``lcp.pdipm.FUSE_ITER`` set
+(K6 per IPM iteration), once after one warm-up.  With ``--lcp`` it runs
+path (c): ``lcp_solve(fric_pair=False)`` forward on the benchmark scene's
+4096 first-step LCPs (chip_smoke.py's
 ``slice_lcp`` and ``LCP_KW``), 10 batches after 3 warm-ups, a "step" being
 one batch.  It reports:
 
@@ -18,10 +22,11 @@ one batch.  It reports:
   trace.
 
 Run from the repository root: ``python tools/profile_torch_slice.py
-[--train | --lcp] [--root DIR]``; ``--root`` profiles the package of
-another checkout (an earlier commit) on this tree's scenes, so two commits
-compare on the same work.  The last line is a JSON object of the step's
-numbers.  Exits non-zero without a CUDA device.
+[--train | --train64 | --fuse-iter | --lcp] [--root DIR]``; ``--root``
+profiles the package of another checkout (an earlier commit) on this
+tree's scenes, so two commits compare on the same work.  The last line
+is a JSON object of the step's numbers.  Exits non-zero without a CUDA
+device.
 """
 import argparse
 import importlib.util
@@ -40,6 +45,10 @@ def main():
     ap.add_argument("--trace", default=None, help="Chrome trace output path")
     ap.add_argument("--train", action="store_true",
                     help="profile the dense training step (fwd+bwd)")
+    ap.add_argument("--train64", action="store_true",
+                    help="profile the dense training step at float64 (K5)")
+    ap.add_argument("--fuse-iter", action="store_true",
+                    help="profile path (b): the dense forward with FUSE_ITER")
     ap.add_argument("--lcp", action="store_true",
                     help="profile path (c), one lcp_solve batch forward")
     ap.add_argument("--root", default=HERE,
@@ -58,18 +67,37 @@ def main():
     spec.loader.exec_module(chip_smoke)
 
     dev = torch.device("cuda", 0)
-    if args.train:
+    if args.train or args.train64:
         cs = chip_smoke
+        Bt, dt, seed = ((cs.TRAIN_B64, torch.float64, 2) if args.train64
+                        else (cs.TRAIN_B, torch.float32, 1))
         step, params, s = cs.train_scene(
-            torch, dev, torch.float32,
-            *cs.grid_start(cs.TRAIN_B, cs.TRAIN_SIDE), cs.TRAIN_C)
+            torch, dev, dt, *cs.grid_start(Bt, cs.TRAIN_SIDE, seed),
+            cs.TRAIN_C)
         cs.train_step(torch, step, params, s, 1)        # warm-up
         unit, per, what = 1, cs.TRAIN_STEPS, (
-            f"B={cs.TRAIN_B} f32 fwd+bwd over {cs.TRAIN_STEPS} steps")
+            f"B={Bt} {str(dt)[6:]} fwd+bwd over {cs.TRAIN_STEPS} steps")
 
         def work(state):
             cs.train_step(torch, step, params, state, cs.TRAIN_STEPS)
             return state
+    elif args.fuse_iter:
+        from lcp_physics_tpu_torch.core import rollout
+        from lcp_physics_tpu_torch.lcp import pdipm
+        cs = chip_smoke
+        step, params, s = cs.train_scene(
+            torch, dev, torch.float32,
+            *cs.grid_start(cs.TRAIN_B, cs.TRAIN_SIDE), cs.TRAIN_C)
+        pdipm.FUSE_ITER = True
+        unit, per, what = 1, cs.TRAIN_STEPS, (
+            f"B={cs.TRAIN_B} f32 forward with FUSE_ITER over "
+            f"{cs.TRAIN_STEPS} steps")
+
+        def work(state):
+            with torch.no_grad():
+                rollout(step, params, state, cs.DT, cs.TRAIN_STEPS)
+            return state
+        work(s)                                          # warm-up
     elif args.lcp:
         cs = chip_smoke
         blocks = cs.slice_lcp(torch, dev, torch.float32)

@@ -13,7 +13,8 @@ windows) on inputs made from fixed seeds at its path's shape: K1/K2
 dense KKT) and (4096, 88, 88) f32 and f64 (the largest lane size); K3 and K3u on 4096 engine-layout LCPs of
 the forward slice's size (n = 24, C = 8: K = 16 rotated, 24 unrotated)
 under its solver settings (max_iter 15, tol 1e-6, not_improved_lim 1), f32;
-K4 on (256, 64, 64) f32 panels; K5 on (32, 128, 128) f64 panels; K6 on the
+K4 on (256, 64, 64) f32 panels; K5 on (32, 128, 128) f64 panels and on
+(256, 128, 128) f32 (``exact``, key ``gj_inv_f32``); K6 on the
 dense scene's first-step LCP (B = 256, f32).  The input generators are this
 tree's ``chip_smoke.py``; the kernels are those of the tree given by
 ``--root`` (default: this one), built into that tree at first use.
@@ -37,7 +38,8 @@ LU_SHAPES = (("", 4096, 16, False), ("_24", 4096, 24, False),
              ("_88_f64", 4096, 88, True))
 NAMES = tuple(k + sfx for sfx, *_ in LU_SHAPES
               for k in ("lu", "solve", "solve_t")) + (
-    "fused_ipm", "fused_ipm_unrot", "gj_inv_blocked", "gj_inv", "ipm_iter")
+    "fused_ipm", "fused_ipm_unrot", "gj_inv_blocked", "gj_inv", "gj_inv_f32",
+    "ipm_iter")
 
 
 def smoke():
@@ -86,6 +88,8 @@ def measure(torch, cs, dev):
     out["gj_inv_blocked"] = cs.cuda_ms(torch, lambda: linalg.gj_inv_blocked(P4))
     P5 = torch.tensor(cs.kkt_batch(rng, 32, 128), dtype=f64, device=dev)
     out["gj_inv"] = cs.cuda_ms(torch, lambda: linalg.gj_inv(P5))
+    P5s = torch.tensor(cs.kkt_batch(rng, 256, 128), dtype=f32, device=dev)
+    out["gj_inv_f32"] = cs.cuda_ms(torch, lambda: linalg.gj_inv(P5s))
     lcp = cs.first_step_lcp(torch, dev, f32, 256, 1)
     vecs, X0, fac, consts = cs.iter_operands(torch, lcp)
     n, m = vecs[2].shape[1], 4 * lcp["F"].C
