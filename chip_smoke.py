@@ -73,7 +73,24 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    ``tests/data/torch_lcp_golden.json`` of ``lcp_solve(fric_pair=False)``
    (regenerate with ``PYTHONPATH=. python
    tests/test_torch_lcp_general.py``).
-8. The card's name and power limit, a JSON line listing every kernel
+8. (h) The hull contact step: bench.py::build_world_scene(dense=True,
+   hulls=True), built here with numpy from its seed (64 squares of side 2
+   in a touching 8 x 8 grid, B = 256 identical worlds, c_max = 128,
+   SimConfig(max_iter=12, solver_eps=1e-5), float32, 16 steps), at
+   hull_pair_budget 0 and 256: ms/step on the host clock, device ms and
+   events per step, host reads and launches per step (K4 must launch: the
+   rotated K2 = 256 factor); budget 256 finds budget 0's contacts on the
+   first step; the first step against the plain versions by distribution.
+9. (p) The same grid at B = 64 with post_stabilization, then with the
+   penetration backtrack (halvings, the backtrack's host reads); the f64
+   hull scene (a Rect, a pentagon, circles, a joint; B = 4, 4 steps, both
+   options on) against the JAX record tests/data/torch_hull_golden.json
+   (regenerate with ``PYTHONPATH=. python tests/test_torch_hull.py``).
+10. (w) The object layer on the card: hello_world and chain for 60
+   World.step calls each (ms per World.step, counters moved, host
+   reads), three Adam steps of the inference demo (its loss falls), and
+   World.broadphase_pairs through the C++ sweep-and-prune.
+11. The card's name and power limit, a JSON line listing every kernel
    (``ms``, ``plain_ms``, ``library_ms`` — one PyTorch call computing the
    same function where there is one, timed here only —, ``bound_ms`` and
    ``bound_by`` from the call's bytes and operations at the card's
@@ -101,6 +118,9 @@ TRAIN_B64 = 32
 GJ_RES_RATIO = 4   # a panel kernel's ||K X - I|| against its plain version's
 LINE_B, LINE_STEPS = 64, 20
 ITER_B64 = 32   # K6 at float64: worlds of the dense scene
+HULL_B, HULL_STEPS, HULL_C = 256, 16, 128   # bench.py's dense hull grid
+STAB_B, STAB_STEPS = 64, 8
+WORLD_STEPS, INFER_EPOCHS = 60, 3
 # The H100 SXM's published peaks (NVIDIA's data sheet; full 700 W power
 # limit): HBM3 bytes/s, and the highest FLOP/s for each item size without
 # reduced precision: float32 outside the tensor cores, float64 on them.
@@ -1383,7 +1403,8 @@ def slice_lcp(torch, dev, dt, Bn=None):
     state = WorldState(torch.tensor(p0, dtype=dt, device=dev),
                        torch.tensor(v0, dtype=dt, device=dev),
                        torch.zeros(Bn, dtype=dt, device=dev))
-    assemble = make_assemble(static, SimConfig(max_iter=15, solver_eps=1e-6))
+    assemble, _ = make_assemble(static,
+                                SimConfig(max_iter=15, solver_eps=1e-6))
     with torch.no_grad():
         blocks, _ = assemble(params, state,
                              torch.full((Bn,), DT, dtype=dt, device=dev))
@@ -1661,6 +1682,320 @@ def phase_line(torch, dev, smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The hull contact step and the object layer.
+# ---------------------------------------------------------------------------
+
+def host_reads():
+    """Host reads so far: the IPM loop's, the step's branches' and
+    World.step's."""
+    from lcp_physics_tpu_torch.core import step as core_step
+    from lcp_physics_tpu_torch.lcp import pdipm
+    from lcp_physics_tpu_torch.physics import world
+    return (pdipm.HOST_READS["ipm_loop"] + sum(core_step.HOST_READS.values())
+            + world.HOST_READS["world_step"])
+
+
+def hull_grid_start(B):
+    """bench.py::build_world_scene(dense=True, hulls=True), in numpy from
+    its seed and in its order: 64 squares of side 2 in a touching 8 x 8
+    grid at spacing 2.01, positions jittered by uniform(-0.01, 0.01),
+    velocities normal(0, 0.5) (numpy seed 1), float32, one world tiled B
+    times.  Returns (p0, v0) (B, 64, 3)."""
+    rng = np.random.default_rng(1)
+    gx, gy = np.meshgrid(np.arange(8), np.arange(8))
+    pos = np.stack([gx.ravel() * 2.01, gy.ravel() * 2.01], -1)
+    pos = pos + rng.uniform(-0.01, 0.01, pos.shape)
+    v0 = rng.normal(0, 0.5, (64, 3)).astype(np.float32)
+    p = np.concatenate([np.zeros((64, 1)), pos], -1).astype(np.float32)
+    tile = lambda x: np.broadcast_to(x, (B,) + x.shape).copy()
+    return tile(p), tile(v0)
+
+
+def hull_scene(torch, dev, dt, p0, v0, **cfg):
+    """(step, params, state) of the hull grid: c_max = 128, gravity (0, 10),
+    restitution 0.4, SimConfig(max_iter=12, solver_eps=1e-5) plus ``cfg``
+    (bench.py::bench_world_steps)."""
+    from lcp_physics_tpu_torch.core import (WorldState, default_params,
+                                            make_scene_static)
+    from lcp_physics_tpu_torch.parallel import make_batched_step
+    from lcp_physics_tpu_torch.utils import SimConfig
+    static = make_scene_static([4] * 64, c_max=HULL_C)
+    sq = np.array([[-1.0, -1.0], [1.0, -1.0], [1.0, 1.0], [-1.0, 1.0]])
+    params = default_params(static,
+                            verts=np.broadcast_to(sq, (64, 4, 2)).copy(),
+                            radius=np.zeros(64), gravity=(0.0, 10.0),
+                            restitution=0.4, dtype=dt, device=dev)
+    state = WorldState(torch.tensor(p0, dtype=dt, device=dev),
+                       torch.tensor(v0, dtype=dt, device=dev),
+                       torch.zeros(p0.shape[0], dtype=dt, device=dev))
+    step = make_batched_step(static, SimConfig(
+        **dict(dict(max_iter=12, solver_eps=1e-5), **cfg)))
+    return step, params, state
+
+
+def first_contacts(torch, step_cfg, params, state):
+    """The contacts the step's assembly finds at ``state`` under
+    ``step_cfg`` (its speculative margin and hull pair budget)."""
+    from lcp_physics_tpu_torch.core import make_scene_static
+    from lcp_physics_tpu_torch.core.step import make_assemble
+    from lcp_physics_tpu_torch.utils import SimConfig
+    static = make_scene_static([4] * 64, c_max=HULL_C)
+    assemble, _ = make_assemble(static, SimConfig(**step_cfg))
+    dt_w = torch.full((state.p.shape[0],), DT, dtype=state.p.dtype,
+                      device=state.p.device)
+    with torch.no_grad():
+        c = assemble.contacts(params, state, dt_w)[0]
+    return type(c)(*(x.cpu() for x in c))
+
+
+def contact_set(c, w):
+    """World w's valid contacts as a sorted list of exact tuples."""
+    v = c.valid[w]
+    cols = [c.ia[w][v], c.ib[w][v], c.depth[w][v], c.normal[w][v][:, 0],
+            c.normal[w][v][:, 1], c.ra[w][v][:, 0], c.ra[w][v][:, 1]]
+    return sorted(zip(*(x.tolist() for x in cols)))
+
+
+def rollout_per_step(torch, what, step, params, state, steps, smi):
+    """A forward rollout with the counts reset just before: its launches,
+    host reads per step and host ms per step; then its device events and
+    device ms per step under the profiler.  Returns (launches, final,
+    trajectory, diagnostics)."""
+    from lcp_physics_tpu_torch.core import rollout
+    with torch.no_grad():
+        step(params, state, DT)                    # warm-up, not counted
+        reads = host_reads()
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        final, traj, rd = rollout(step, params, state, DT, steps,
+                                  with_diagnostics=True)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launches = launch_counts()
+        reads = (host_reads() - reads) / steps
+        events, dev_ms = device_events(
+            torch, lambda: rollout(step, params, state, DT, steps), steps)
+    shown = ("not measured" if events is None else
+             f"{events:.0f} device events, {dev_ms:.3f} ms of device time")
+    moved = {k: n for k, n in launches.items() if n}
+    print(f"  {what}: {1e3 * sec / steps:.2f} ms/step on the host clock, "
+          f"{reads:.1f} host reads per step; {shown} per step; launches "
+          f"over {steps} steps {moved} ({smi})", flush=True)
+    check(bool(torch.isfinite(traj.p).all() and torch.isfinite(traj.v).all()),
+          f"{what}: every state of the rollout is finite")
+    return launches, final, traj, rd
+
+
+def phase_hull(torch, dev, smi):
+    """(h) The hull grid (bench.py's dense hull scene, B = 256 f32, 16
+    steps) at hull_pair_budget 0 and 256: K4 launched (the rotated K2 = 256
+    factor), the budget's contacts those of the full pair list on the
+    first step, and the first step through the kernels against the plain
+    versions, held to plain's one-ulp spread.  Returns the launch counts
+    of the budget-0 run."""
+    from lcp_physics_tpu_torch.core import geometry
+    from lcp_physics_tpu_torch.core.step import motion_margins
+    f32 = torch.float32
+    p0, v0 = hull_grid_start(HULL_B)
+    runs = {}
+    for budget in (0, 256):
+        step, params, state = hull_scene(torch, dev, f32, p0, v0,
+                                         hull_pair_budget=budget)
+        launches, _, traj, rd = rollout_per_step(
+            torch, f"hull grid, hull_pair_budget={budget} (B={HULL_B}, f32,"
+            f" {HULL_STEPS} steps)", step, params, state, HULL_STEPS, smi)
+        check(launches["gj_inv_blocked"] > 0,
+              f"the hull grid (budget {budget}) launched K4 "
+              f"({launches['gj_inv_blocked']} launches)")
+        check(int(rd.total_contacts.min()) > 0,
+              f"every world of the hull grid (budget {budget}) had contacts "
+              f"({int(rd.total_contacts.min())} or more over the run)")
+        runs[budget] = (launches, traj, step, params, state)
+    # the budget is exact when it covers every pair whose AABBs, inflated
+    # by the step's speculative margin, overlap
+    margin = motion_margins(params, state, torch.full(
+        (HULL_B,), DT, dtype=f32, device=dev), [4] * 64)
+    boxes = geometry.aabbs(state.p, params.verts, params.radius, [4] * 64) \
+        + torch.stack([-margin, margin], dim=-1)[..., None]
+    hi, hj = geometry.split_pairs_by_kind(np.full(64, 4))["hh"]
+    n_over = int((geometry.aabb_overlap_depth(
+        boxes, torch.as_tensor(hi, device=dev),
+        torch.as_tensor(hj, device=dev)) > 0).sum(-1).max())
+    cfg = dict(max_iter=12, solver_eps=1e-5)
+    c0 = first_contacts(torch, cfg, params, state)
+    c256 = first_contacts(torch, dict(cfg, hull_pair_budget=256), params,
+                          state)
+    same = all(contact_set(c0, w) == contact_set(c256, w)
+               for w in range(HULL_B))
+    check(n_over <= 256 and same,
+          f"first step: at most {n_over} of {len(hi)} hull pairs overlap "
+          f"(<= 256), and budget 256 finds the contacts of budget 0 in every "
+          f"world ({int(c0.valid[0].sum())} valid rows a world)")
+    dv = float((runs[0][1].v[0] - runs[256][1].v[0]).abs().max())
+    print(f"  first-step v, budget 256 vs 0: max difference {dv:.3e}",
+          flush=True)
+    # the first step, kernels against the plain versions
+    _, _, step, params, state = runs[0]
+    with torch.no_grad():
+        s1, _ = step(params, state, DT)
+        with plain_kernels("the hull grid's comparison steps"):
+            s1_r, _ = step(params, state, DT)
+            step_u, params_u, state_u = hull_scene(torch, dev, f32, ulp(p0),
+                                                   v0)
+            s1_u, _ = step_u(params_u, state_u, DT)
+    e, e_u = (world_rel(s.v, s1_r.v) for s in (s1, s1_u))
+    check(float(e.median()) <= max(1e-5, 4 * float(e_u.median()))
+          and share(e, 1e-3) >= share(e_u, 1e-3) - 0.05,
+          f"hull grid one-step v kernel vs plain, f32: median world "
+          f"{float(e.median()):.2e}, within 1e-3 on {share(e, 1e-3):.2%} "
+          f"(plain at p0+1ulp: median {float(e_u.median()):.2e}, within "
+          f"1e-3 on {share(e_u, 1e-3):.2%})")
+    return runs[0][0]
+
+
+def phase_stab(torch, dev, smi):
+    """(p) The hull grid at B = 64 with post_stabilization, then with the
+    penetration backtrack: launches, host reads and device time per step,
+    the halvings; then the f64 hull scene against the JAX record
+    tests/data/torch_hull_golden.json (post-stabilization and the
+    backtrack together)."""
+    from lcp_physics_tpu_torch.core import (JointSpec, default_params,
+                                            make_scene_static, rollout,
+                                            WorldState)
+    from lcp_physics_tpu_torch.core import step as core_step
+    from lcp_physics_tpu_torch.parallel import make_batched_step
+    from lcp_physics_tpu_torch.utils import SimConfig
+    f32 = torch.float32
+    p0, v0 = hull_grid_start(STAB_B)
+    for cfg in ({}, dict(post_stabilization=True),
+                dict(penetration_backtrack=True)):
+        step, params, state = hull_scene(torch, dev, f32, p0, v0, **cfg)
+        tries = core_step.HOST_READS["backtrack"]
+        launches, _, traj, rd = rollout_per_step(
+            torch, f"hull grid, {cfg or 'plain step'} (B={STAB_B}, f32, "
+            f"{STAB_STEPS} steps)", step, params, state, STAB_STEPS, smi)
+        check(launches["gj_inv_blocked"] > 0,
+              f"the hull grid with {cfg or 'the plain step'} launched K4")
+        h = rd.max_halvings
+        # rollout_per_step runs 1 + 2 * STAB_STEPS steps
+        tries = (core_step.HOST_READS["backtrack"] - tries) \
+            / (1 + 2 * STAB_STEPS)
+        print(f"  halvings (most per world over the run): max {int(h.max())}"
+              f", worlds that halved {int((h > 0).sum())} of {STAB_B}; "
+              f"{tries:.2f} backtrack tries (host reads) per step",
+              flush=True)
+
+    with open(os.path.join(ROOT, "tests", "data",
+                           "torch_hull_golden.json")) as f:
+        rec = json.load(f)
+    f64 = torch.float64
+    static = make_scene_static(rec["counts"], joints=[
+        JointSpec(**{k: (tuple(v) if isinstance(v, list) else v)
+                     for k, v in j.items()}) for j in rec["joints"]],
+        c_max=rec["c_max"])
+    params = default_params(static, verts=np.asarray(rec["verts"]),
+                            radius=np.asarray(rec["radius"]),
+                            gravity=(0.0, 10.0), restitution=0.3,
+                            fric_coeff=0.6, dtype=f64, device=dev)
+    B = len(rec["p0"])
+    state = WorldState(torch.tensor(rec["p0"], dtype=f64, device=dev),
+                       torch.tensor(rec["v0"], dtype=f64, device=dev),
+                       torch.zeros(B, dtype=f64, device=dev))
+    step = make_batched_step(static, SimConfig(**rec["config"]))
+    reset_counts()
+    _, traj, rd = rollout(step, params, state, rec["dt"], len(rec["p"]),
+                          with_diagnostics=True)
+    launches = launch_counts()
+    check(launches["lu"] > 0 and launches["solve"] > 0,
+          f"the f64 hull record's run launched K1/K2: "
+          f"{ {k: n for k, n in launches.items() if n} }")
+    for k, got in (("p", traj.p), ("v", traj.v)):
+        e = float((got.cpu() - torch.tensor(rec[k], dtype=f64)).abs().max())
+        check(e <= 1e-8, f"f64 hull scene (post-stabilization and the "
+                         f"backtrack, B={B}) vs JAX record {k}: {e:.2e} "
+                         f"<= 1e-8")
+    check(rd.max_halvings.tolist() == rec["max_halvings"],
+          f"f64 hull scene halvings {rd.max_halvings.tolist()} equal the "
+          f"JAX record's")
+
+
+def phase_world(torch, dev, smi):
+    """(w) The object layer on the card: hello_world and chain for
+    WORLD_STEPS World.step calls each (ms per World.step, which kernel
+    counters moved, host reads), a few gradient steps of the inference
+    demo (its loss falls), and the host broadphase's C++ path."""
+    from lcp_physics_tpu_torch import native
+    from lcp_physics_tpu_torch.demos import chain, hello_world, inference
+    for name, make in (("hello_world", hello_world.make_world),
+                       ("chain", chain.make_world)):
+        w = make()
+        check(w.world_state.p.device.type == "cuda",
+              f"{name}: the demo's World is on the card")
+        w.step()                                   # warm-up, not counted
+        reads = host_reads()
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(WORLD_STEPS):
+            w.step()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launches = {k: n for k, n in launch_counts().items() if n}
+        reads = (host_reads() - reads) / WORLD_STEPS
+        check(bool(torch.isfinite(w.world_state.p).all()),
+              f"{name}: {WORLD_STEPS} World.step calls, finite; kernels "
+              f"launched {launches}")
+        if name == "hello_world":
+            # the box's and a circle's AABBs overlap from the start, so
+            # every step solves its K2 = 81 rotated system (lane LU)
+            check(launches.get("lu", 0) > 0 and launches.get("solve", 0) > 0,
+                  "hello_world's steps launched K1 and K2")
+        events, dev_ms = device_events(torch, w.step, 1)
+        shown = ("not measured" if events is None else
+                 f"{events:.0f} device events, {dev_ms:.3f} ms of device "
+                 "time")
+        print(f"  {name}: {1e3 * sec / WORLD_STEPS:.2f} ms per World.step "
+              f"(f32), {reads:.1f} host reads per World.step; {shown} for "
+              f"one more World.step ({smi})", flush=True)
+        if name == "chain":
+            gaps = chain.joint_gaps(w)
+            check(max(gaps) < 2.0, f"chain: joint gaps {max(gaps):.3e} < 2")
+    pairs = w.broadphase_pairs()
+    check(native.LAST_PATH == "cpp",
+          f"World.broadphase_pairs ran native.sap_pairs' C++ path "
+          f"({len(pairs)} pairs; build error: {native.BUILD_ERROR})")
+
+    from lcp_physics_tpu_torch.core import make_step
+    from lcp_physics_tpu_torch.utils import SimConfig
+    static, true_params, state0 = inference.build_scene(device=dev)
+    step = make_step(static, SimConfig())
+    with torch.no_grad():
+        target = inference.trajectory(step, true_params, state0)
+    mass = torch.tensor(1.0, device=dev, requires_grad=True)
+    rest = torch.tensor(0.3, device=dev, requires_grad=True)
+    opt = torch.optim.Adam([mass, rest], lr=0.05)
+    reset_counts()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(INFER_EPOCHS):
+        params = inference.with_guess(true_params, mass, rest)
+        loss = ((inference.trajectory(step, params, state0) - target)
+                ** 2).mean()
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+        losses.append(float(loss.detach()))
+    sec = time.perf_counter() - t0
+    moved = {k: n for k, n in launch_counts().items() if n}
+    check(losses[-1] < losses[0] and moved,
+          f"inference demo: loss {losses[0]:.4f} -> {losses[-1]:.4f} over "
+          f"{INFER_EPOCHS} Adam steps ({1e3 * sec / INFER_EPOCHS:.0f} ms per "
+          f"{inference.STEPS}-step fwd+bwd on the card, f32; kernels "
+          f"{moved}; {smi})")
+
+
 def phase_turns(parent, smi):
     """The seven kernels of the checkout at ``parent`` and of this tree,
     device time, in turns parent, this, this, parent
@@ -1726,6 +2061,14 @@ def main():
     phase_stats(torch, dev, smi)
     print("== the f64 JAX record of lcp_solve(fric_pair=False)", flush=True)
     hold_lcp_record(torch, dev)
+    print("== (h) the hull grid: bench.py's dense 64-square scene",
+          flush=True)
+    phase_hull(torch, dev, smi)
+    print("== (p) post-stabilization and the penetration backtrack",
+          flush=True)
+    phase_stab(torch, dev, smi)
+    print("== (w) the object layer: World, the demos", flush=True)
+    phase_world(torch, dev, smi)
 
     src = "lcp_physics_tpu_torch/csrc/"
     rows = [("lu", src + "lu.cu", "lcp_physics_tpu/ops/linalg.py:113",

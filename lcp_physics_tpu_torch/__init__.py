@@ -9,14 +9,20 @@ wrapper runs its plain torch version instead.
 
 - ``utils``    — ``SimConfig``, ``Defaults``, 2D math helpers and
   ``utils.observe`` (solver statistics, guards, timer, profiler trace).
-- ``core``     — state, circle narrowphase, Jacobians, the batched step and
-  rollout.
+- ``core``     — state, the circle and hull narrowphase, Jacobians, the
+  batched and single-world steps (post-stabilization, the penetration
+  backtrack) and rollout.
+- ``physics``  — the object layer: ``World``, ``run_world``, bodies,
+  constraints, forces, contact handlers and ``PdipmEngine``.
 - ``lcp``      — the batched differentiable mixed-LCP/QP solver
   (``lcp_solve``, ``lcp_solve_full``, ``LCPFunction``, ``solve_eq_kkt``).
 - ``ops``      — the LU, substitution, Gauss-Jordan and fused-IPM kernels.
 - ``parallel`` — world-batch helpers.
+- ``native``   — the host-side sweep-and-prune broadphase (C++).
+- ``demos``    — hello_world, chain, inference and billiards.
 """
 
 __version__ = "0.1.0"
 
-from lcp_physics_tpu_torch import utils, lcp, core, ops, parallel  # noqa: F401
+from lcp_physics_tpu_torch import (utils, lcp, core, ops, parallel,  # noqa: F401
+                                   physics)

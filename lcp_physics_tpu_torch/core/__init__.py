@@ -17,8 +17,8 @@ from lcp_physics_tpu_torch.core.state import (JointSpec, SceneParams,
 from lcp_physics_tpu_torch.core.step import (RolloutDiagnostics,
                                              StepDiagnostics,
                                              generalized_mass, make_assemble,
-                                             make_step_batched, rollout,
-                                             total_force)
+                                             make_step, make_step_batched,
+                                             rollout, total_force)
 
 __all__ = [
     "Contacts", "find_contacts", "max_penetration", "split_pairs_by_kind",
@@ -26,6 +26,6 @@ __all__ = [
     "constraint_position_error", "JointSpec", "SceneParams", "SceneStatic",
     "WorldState", "default_params", "make_scene_static", "params_from_numpy",
     "state_from_numpy", "StepDiagnostics", "RolloutDiagnostics",
-    "generalized_mass", "make_assemble", "make_step_batched", "rollout",
-    "total_force",
+    "generalized_mass", "make_assemble", "make_step", "make_step_batched",
+    "rollout", "total_force",
 ]

@@ -8,19 +8,24 @@ the JAX package:
     G = [-Jc; -Jf; 0],  F = [[0,0,0],[0,0,-E],[-diag(mu),E^T,0]],
     h = [e (Jc v); 0; 0]; padded slots get zero rows and h = 1.
 
-The contact-free fast path is a Python ``if`` on the batch-level AABB
-predicate (the JAX package's ``lax.cond``): one host synchronisation per
-step, and one more for the post-step penetration gate.
+Each ``lax.cond`` of the JAX step is a Python ``if`` on one host read,
+counted in ``HOST_READS``: the contact-free fast path (the batch-level
+AABB predicate, ``"contact_gate"``), the post-step penetration gate
+(``"penetration_gate"``) and post-stabilization's choice between the
+position LCP and its closed form (``"post_stab"``).  The in-step
+penetration backtrack (``SimConfig.penetration_backtrack``) replaces the
+JAX ``lax.while_loop`` by a Python loop of forward steps under
+``torch.no_grad``, one host read per try (``"backtrack"``), then one
+differentiable step at the accepted per-world dt.
 
 The step is differentiable end to end: gradients pass through the
 narrowphase, the contact compaction (a gather) and the assembly as plain
 autograd, and through the LCP by ``lcp_solve``'s implicit backward.
-
-Not ported yet (each raises): post-stabilization and the penetration
-backtrack (ROADMAP A6), the single-world ``make_step`` (A6).
+``make_step`` is the single-world step: the batched one at B = 1.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import numpy as np
@@ -31,13 +36,18 @@ from lcp_physics_tpu_torch.core.geometry import (any_aabb_overlap,
                                                  find_contacts,
                                                  max_penetration)
 from lcp_physics_tpu_torch.core.jacobians import (assemble_contact_jacobians,
-                                                  assemble_Je)
+                                                  assemble_Je,
+                                                  constraint_position_error)
 from lcp_physics_tpu_torch.core.state import (SceneParams, SceneStatic,
                                               WorldState)
 from lcp_physics_tpu_torch.lcp import lcp_solve
 from lcp_physics_tpu_torch.lcp.cone import ConeF
 from lcp_physics_tpu_torch.lcp.pdipm import _dtype_consts
 from lcp_physics_tpu_torch.utils import SimConfig
+
+# Host reads of the step's Python branches (module docstring).
+HOST_READS = {"contact_gate": 0, "penetration_gate": 0, "post_stab": 0,
+              "backtrack": 0}
 
 
 class StepDiagnostics(NamedTuple):
@@ -94,11 +104,13 @@ def _take(x, idx):
 
 
 def make_assemble(static: SceneStatic, config: SimConfig):
-    """Batched LCP block assembly.  Returns ``assemble(params, states,
-    dt_w) -> (blocks, contacts)`` carrying the staged split the contact-free
-    fast path uses as attributes: ``eq``, ``any_overlap``, ``contacts``,
-    ``contact_blocks`` and ``empty_blocks`` (same stages as the JAX
-    package; ``dt_w`` is the (B,) per-world step)."""
+    """Batched LCP block assembly.  Returns ``(assemble,
+    assemble_post_stab)``: ``assemble(params, states, dt_w) -> (blocks,
+    contacts)`` carrying the staged split the contact-free fast path uses
+    as attributes (``eq``, ``any_overlap``, ``contacts``,
+    ``contact_blocks`` and ``empty_blocks``, the JAX package's stages;
+    ``dt_w`` is the (B,) per-world step), and ``assemble_post_stab(params,
+    p)``, the blocks of the position-projection solve."""
     pairs = static.pair_lists()
     counts = static.counts_np()
     N = static.n_bodies
@@ -125,7 +137,8 @@ def make_assemble(static: SceneStatic, config: SimConfig):
         scene has no contact capacity."""
         contacts = find_contacts(states.p, params.verts, params.radius,
                                  counts, pairs, C,
-                                 margin=_margin(params, states, dt_w))
+                                 margin=_margin(params, states, dt_w),
+                                 hull_budget=config.hull_pair_budget)
         if config.stop_contact_grad:
             contacts = type(contacts)(*(x.detach() for x in contacts))
         if C == 0:
@@ -190,7 +203,33 @@ def make_assemble(static: SceneStatic, config: SimConfig):
     assemble.any_overlap = any_overlap
     assemble.contact_blocks = assemble_contact_blocks
     assemble.empty_blocks = empty_blocks
-    return assemble
+
+    def assemble_post_stab(params, p):
+        """Blocks of the position-projection solve (the reference's
+        ``PdipmEngine.post_stabilization``): min 1/2 dp' M dp subject to
+        Je dp = -err and, per contact, Jc dp >= depth."""
+        B = p.shape[0]
+        opts = dict(dtype=p.dtype, device=p.device)
+        Mdiag = generalized_mass(params).expand(B, 3 * N)
+        Je = assemble_Je(static, p)
+        err = constraint_position_error(static, p)
+        zero_p = torch.zeros((B, 3 * N), **opts)
+        if C == 0:
+            return dict(Q=Mdiag, p=zero_p,
+                        G=torch.zeros((B, 0, 3 * N), **opts),
+                        h=torch.zeros((B, 0), **opts), A=Je, b=-err,
+                        F=torch.zeros((B, 0, 0), **opts))
+        contacts = find_contacts(p, params.verts, params.radius, counts,
+                                 pairs, C,
+                                 hull_budget=config.hull_pair_budget)
+        Jc, _, _ = assemble_contact_jacobians(contacts, N, fd)
+        # push out: Jc dp >= depth  ->  -Jc dp <= -depth
+        h_ps = torch.where(contacts.valid, -contacts.depth, 1.0)
+        return dict(Q=Mdiag, p=zero_p, G=-Jc, h=h_ps, A=Je, b=-err,
+                    F=torch.zeros((B, C, C), **opts),
+                    row_mask=contacts.valid.to(p.dtype))
+
+    return assemble, assemble_post_stab
 
 
 def _equality_solve(Qd, pvec, A, b):
@@ -210,6 +249,19 @@ def _equality_solve(Qd, pvec, A, b):
     return vin - torch.einsum("...qn,...q->...n", A, nu) / Qd
 
 
+def _solve_or_free(blocks, solver_kw, enabled):
+    """The position-projection solve: the LCP when any contact row is
+    active anywhere in the tile, else its closed form (the JAX package's
+    ``lax.cond``; here one host read, ``HOST_READS["post_stab"]``)."""
+    rm = blocks.get("row_mask")
+    if not enabled or rm is None:
+        return lcp_solve(**blocks, **solver_kw)
+    if _gate("post_stab", rm > 0):
+        return lcp_solve(**blocks, **solver_kw)
+    return _equality_solve(blocks["Q"], blocks["p"], blocks["A"],
+                           blocks["b"])
+
+
 def _max_depth(contacts):
     return torch.clamp(torch.amax(torch.where(contacts.valid, contacts.depth,
                                               0.0), dim=-1), min=0.0)
@@ -220,25 +272,22 @@ def make_step_batched(static: SceneStatic, config: SimConfig = SimConfig(),
     """Batch-native step: ``step_b(params, states, dt) -> (states',
     StepDiagnostics)`` with ONE batched LCP solve per step.  Parameters are
     shared by all worlds, or per world with a leading batch axis when
-    ``params_batched``."""
-    if config.post_stabilization or config.penetration_backtrack:
-        raise NotImplementedError(
-            "ROADMAP A6: post_stabilization and penetration_backtrack are "
-            "not ported yet")
-    assemble = make_assemble(static, config)
+    ``params_batched``.  ``dt`` is a number or a tensor, () or (B,)."""
+    assemble, assemble_ps = make_assemble(static, config)
     N = static.n_bodies
     C = static.c_max
     pairs = static.pair_lists()
     counts = static.counts_np()
     fast_free = config.contact_free_fast_path
-    dyn_kw = dict(max_iter=config.max_iter, tol=config.solver_eps,
-                  backend=config.lcp_backend, q_is_diag=True,
-                  refine=config.solver_refine,
-                  not_improved_lim=config.solver_stall_lim,
-                  gondzio=config.solver_gondzio,
-                  stall_rtol=config.solver_stall_rtol, gamma_rows=C,
-                  fric_pair=(config.fric_dirs == 2),
-                  factor_precision=config.solver_factor_precision)
+    solver_kw = dict(max_iter=config.max_iter, tol=config.solver_eps,
+                     backend=config.lcp_backend, q_is_diag=True,
+                     refine=config.solver_refine,
+                     not_improved_lim=config.solver_stall_lim,
+                     gondzio=config.solver_gondzio,
+                     stall_rtol=config.solver_stall_rtol,
+                     factor_precision=config.solver_factor_precision)
+    dyn_kw = dict(solver_kw, gamma_rows=C,
+                  fric_pair=(config.fric_dirs == 2))
 
     def solve_with_contacts(params, states, eq, dt_w):
         contacts, rmask = assemble.contacts(params, states, dt_w)
@@ -248,7 +297,7 @@ def make_step_batched(static: SceneStatic, config: SimConfig = SimConfig(),
         ncon = (contacts.valid & (contacts.depth > 0)).sum(-1).to(torch.int32)
         return v, ncon, _max_depth(contacts)
 
-    def step_tile(params, states, dt):
+    def step_tile_plain(params, states, dt):
         B = states.p.shape[0]
         dtype, dev = states.p.dtype, states.p.device
         dt_w = torch.as_tensor(dt, dtype=dtype, device=dev).expand(B)
@@ -261,19 +310,23 @@ def make_step_batched(static: SceneStatic, config: SimConfig = SimConfig(),
             # its regularization and its implicit backward, as in JAX
             v_flat = lcp_solve(**assemble.empty_blocks(eq), **dyn_kw)
         # Contact-free fast path: the AABB predicate False proves the
-        # whole batch contact-free (host sync, see module docstring).
-        elif fast_free and not bool(
-                assemble.any_overlap(params, states, dt_w).any()):
+        # whole batch contact-free (host read, see module docstring).
+        elif fast_free and not _gate(
+                "contact_gate", assemble.any_overlap(params, states, dt_w)):
             v_flat = _equality_solve(eq["Q"], eq["p"], eq["A"], eq["b"])
         else:
             v_flat, ncon, prepen = solve_with_contacts(params, states, eq,
                                                        dt_w)
         v_new = v_flat.reshape(B, N, 3)
         p_new = states.p + dt_w[:, None, None] * v_new
+        if config.post_stabilization:
+            ps = assemble_ps(params, p_new)
+            p_new = p_new + _solve_or_free(ps, solver_kw,
+                                           fast_free).reshape(B, N, 3)
         new_states = WorldState(p=p_new, v=v_new, t=states.t + dt_w)
         sg_pnew = p_new.detach()
-        if C and (not fast_free or bool(any_aabb_overlap(
-                sg_pnew, params.verts, params.radius, counts, pairs).any())):
+        if C and (not fast_free or _gate("penetration_gate", any_aabb_overlap(
+                sg_pnew, params.verts, params.radius, counts, pairs))):
             post = max_penetration(sg_pnew, params.verts, params.radius,
                                    counts, pairs)
         else:
@@ -281,7 +334,53 @@ def make_step_batched(static: SceneStatic, config: SimConfig = SimConfig(),
         return new_states, StepDiagnostics(ncon, post.detach(), prepen,
                                            zeros_i)
 
+    max_h = config.max_dt_halvings
+    tol = config.tol
+
+    def step_tile_backtrack(params, states, dt):
+        """The reference ``World.step``'s restore-and-retry per world: a
+        loop of forward steps under ``torch.no_grad`` halves dt in each world
+        whose step creates fresh penetration above ``tol`` (at most
+        ``max_dt_halvings`` times), then ONE differentiable step runs at
+        the accepted per-world dt.  A world that accepts stays accepted;
+        on exhaustion it takes its shallowest sub-step and reports
+        ``halvings = max_dt_halvings + 1``.  Worlds that accept the full
+        step get the caller's differentiable dt back."""
+        B = states.p.shape[0]
+        dtype, dev = states.p.dtype, states.p.device
+        dt_caller = torch.as_tensor(dt, dtype=dtype, device=dev).expand(B)
+        dt_full = dt_caller.detach()
+        dt_cur = dt_full
+        accepted = torch.zeros(B, dtype=torch.bool, device=dev)
+        best_dt = dt_full
+        best_post = torch.full((B,), float("inf"), dtype=dtype, device=dev)
+        with torch.no_grad():
+            for _ in range(max_h + 1):
+                _, diag = step_tile_plain(params, states, dt_cur)
+                post = diag.max_penetration
+                ok = (post <= tol) | (post - diag.pre_penetration <= tol)
+                better = (~accepted) & (post < best_post)
+                best_dt = torch.where(better, dt_cur, best_dt)
+                best_post = torch.where(better, post, best_post)
+                accepted = accepted | ok
+                dt_cur = torch.where(accepted, dt_cur, dt_cur * 0.5)
+                if _gate("backtrack", accepted.all()):
+                    break
+            dt_acc = torch.where(accepted, dt_cur, best_dt)
+            pos = dt_acc > 0
+            ratio = torch.where(pos, dt_full / torch.where(pos, dt_acc, 1.0),
+                                1.0)
+            halvings = torch.where(
+                accepted, torch.round(torch.log2(ratio)).to(torch.int32),
+                max_h + 1)
+        dt_final = torch.where(halvings == 0, dt_caller, dt_acc)
+        new_states, diag = step_tile_plain(params, states, dt_final)
+        return new_states, diag._replace(halvings=halvings)
+
     tile = config.batch_tile
+    step_tile = (step_tile_backtrack
+                 if (config.penetration_backtrack and C) else
+                 step_tile_plain)
 
     def step_b(params, states, dt):
         B = states.p.shape[0]
@@ -290,6 +389,8 @@ def make_step_batched(static: SceneStatic, config: SimConfig = SimConfig(),
         if B % tile:
             raise ValueError(
                 f"world batch {B} is not divisible by batch_tile {tile}")
+        dt_b = torch.as_tensor(dt, dtype=states.p.dtype,
+                               device=states.p.device).expand(B)
         outs = []
         for t0 in range(0, B, tile):
             sl = slice(t0, t0 + tile)
@@ -299,7 +400,7 @@ def make_step_batched(static: SceneStatic, config: SimConfig = SimConfig(),
                     else params.force_params)
                 for f in SceneParams.__dataclass_fields__})
                 if params_batched else params)
-            outs.append(step_tile(p_t, s_t, dt))
+            outs.append(step_tile(p_t, s_t, dt_b[sl]))
         cat = lambda xs: torch.cat(xs, dim=0)
         new_states = WorldState(*(cat([getattr(o[0], f) for o in outs])
                                   for f in ("p", "v", "t")))
@@ -308,6 +409,31 @@ def make_step_batched(static: SceneStatic, config: SimConfig = SimConfig(),
         return new_states, diags
 
     return step_b
+
+
+def _gate(name, flag):
+    """One host read of a device flag (any world), counted."""
+    HOST_READS[name] += 1
+    return bool(flag.any())
+
+
+def make_step(static: SceneStatic, config: SimConfig = SimConfig()):
+    """Single-world step ``step(params, state, dt) -> (state',
+    StepDiagnostics)`` on a state p, v (N, 3), t (): the batched step at
+    B = 1.  As in the JAX package it takes no penetration backtrack and no
+    world tiles (``World.step`` retries on the host)."""
+    step_b = make_step_batched(static, dataclasses.replace(
+        config, penetration_backtrack=False, batch_tile=0))
+
+    def step(params, state, dt):
+        one = WorldState(state.p[None], state.v[None],
+                         torch.as_tensor(state.t, dtype=state.p.dtype,
+                                         device=state.p.device)[None])
+        new, diag = step_b(params, one, dt)
+        return (WorldState(new.p[0], new.v[0], new.t[0]),
+                StepDiagnostics(*(x[0] for x in diag)))
+
+    return step
 
 
 def rollout(step, params, state, dt, n_steps, remat=False,

@@ -1,20 +1,47 @@
-"""Simulation defaults, the static configuration and the 2D math helpers.
+"""Simulation defaults, the static configuration, the 2D math helpers and
+the host-side recording utilities.
 
 Counterpart of ``lcp_physics_tpu/utils/__init__.py``.  The helpers are plain
-functions on tensors that broadcast over any leading (batch) dimensions.
-The host-side ``Recorder``/``plot`` utilities and the lazy
-``Defaults.ENGINE``/``Defaults.CONTACT`` bindings belong to the object layer,
-which this package does not carry yet (ROADMAP A7).
+functions on tensors that broadcast over any leading (batch) dimensions;
+``Recorder`` and ``plot`` are host-side only and import pygame and
+matplotlib when called.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
+import os
 
+import numpy as np
 import torch
 
 
-class Defaults:
-    """Default simulation constants (same values as the JAX package).
+class Indices:
+    """Index layout of the per-body generalized coordinate [rot, x, y]."""
+
+    ROT = 0
+    X = 1
+    Y = 2
+
+
+class _DefaultsMeta(type):
+    # ENGINE/CONTACT resolve lazily: the physics package imports utils, so
+    # binding the classes here would be an import cycle.
+    @property
+    def ENGINE(cls):
+        from lcp_physics_tpu_torch.physics.engines import PdipmEngine
+        return PdipmEngine
+
+    @property
+    def CONTACT(cls):
+        from lcp_physics_tpu_torch.physics.contacts import DiffContactHandler
+        return DiffContactHandler
+
+
+class Defaults(metaclass=_DefaultsMeta):
+    """Default simulation constants (same values as the JAX package);
+    ``Defaults.ENGINE`` is ``PdipmEngine`` and ``Defaults.CONTACT``
+    ``DiffContactHandler``.
 
     There is no default dtype: every constructor of this package takes its
     ``dtype`` and ``device`` explicitly instead of relying on torch's
@@ -66,10 +93,10 @@ class SimConfig:
     * ``solver_gondzio`` > 0 adds the Gondzio correctors to the unfused
       loop and, as in the JAX package, keeps the solve out of the fused
       kernels.
-    * ``post_stabilization`` and ``penetration_backtrack`` (ROADMAP A6)
-      raise until they are ported.
-      ``hull_pair_budget`` only acts on hull pairs, which the port's
-      narrowphase does not take yet (ROADMAP A5).
+    * ``penetration_backtrack`` loops on the host: one host read per try
+      (``core.step.HOST_READS["backtrack"]``), as post-stabilization's
+      choice between the LCP and its closed form takes one
+      (``HOST_READS["post_stab"]``).
     """
 
     fric_dirs: int = Defaults.FRIC_DIRS
@@ -146,3 +173,79 @@ def polygon_inertia(verts, mass):
                              + torch.sum(v2 * v2, dim=-1)))
     den = 6.0 * torch.sum(cross)
     return mass * num / den
+
+
+def polygon_centroid(verts):
+    """Centroid (2,) of a convex polygon with vertices ``verts`` (V, 2)."""
+    v = verts
+    v2 = torch.roll(v, -1, dims=0)
+    cross = cross_2d(v, v2)
+    area6 = 3.0 * torch.sum(cross)
+    cx = torch.sum((v[:, 0] + v2[:, 0]) * cross) / area6
+    cy = torch.sum((v[:, 1] + v2[:, 1]) * cross) / area6
+    return torch.stack([cx, cy])
+
+
+def get_tensor(x, dtype=None, device=None):
+    """Scalars, lists, arrays or tensors as a tensor.  A tensor keeps its
+    dtype and device unless they are given; anything else becomes float64
+    on the CPU unless they are given (host-side values of the object
+    layer)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dtype=dtype or x.dtype, device=device or x.device)
+    return torch.as_tensor(np.asarray(x, dtype=np.float64),
+                           dtype=dtype or torch.float64,
+                           device=device or "cpu")
+
+
+def rotation_matrix(theta):
+    """2x2 rotation matrices (..., 2, 2) for angles theta (...)."""
+    c, s = torch.cos(theta), torch.sin(theta)
+    return torch.stack([torch.stack([c, -s], dim=-1),
+                        torch.stack([s, c], dim=-1)], dim=-2)
+
+
+def cart_to_polar(v, positive=True):
+    """(r, theta) of 2-vectors v (..., 2); theta in [0, 2 pi) when
+    ``positive``."""
+    r = torch.linalg.vector_norm(v, dim=-1)
+    theta = torch.atan2(v[..., 1], v[..., 0])
+    if positive:
+        theta = torch.where(theta < 0, theta + 2 * math.pi, theta)
+    return r, theta
+
+
+def polar_to_cart(r, theta):
+    return torch.stack([r * torch.cos(theta), r * torch.sin(theta)], dim=-1)
+
+
+class Recorder:
+    """Dump rendered frames to disk at a fixed recording dt (host-side)."""
+
+    def __init__(self, dt, screen, path=os.path.join(".", "videos", "frames")):
+        self.dt = dt
+        self.prev_t = 0.0
+        self.frame = 0
+        self.screen = screen
+        self.path = path
+        os.makedirs(path, exist_ok=True)
+
+    def record(self, t):
+        if t - self.prev_t >= self.dt:
+            import pygame  # lazy: never on the math path
+
+            pygame.image.save(
+                self.screen, os.path.join(self.path, f"{self.frame:07d}.bmp"))
+            self.frame += 1
+            self.prev_t += self.dt
+
+
+def plot(y_axis, x_axis=None):
+    """Quick matplotlib line plot (host-side debugging helper)."""
+    import matplotlib.pyplot as plt  # lazy
+
+    y = np.asarray(torch.as_tensor(y_axis).detach().cpu())
+    x = (np.arange(len(y)) if x_axis is None
+         else np.asarray(torch.as_tensor(x_axis).detach().cpu()))
+    plt.plot(x, y)
+    plt.show()

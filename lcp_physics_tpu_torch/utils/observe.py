@@ -45,7 +45,7 @@ def solver_stats(static, config, params, state, dt=1e-2):
     from lcp_physics_tpu_torch.core.step import make_assemble
     from lcp_physics_tpu_torch.lcp import lcp_solve_full
 
-    assemble = make_assemble(static, config)
+    assemble, _ = make_assemble(static, config)
     single = state.p.dim() == 2
     if single:
         state = type(state)(state.p[None], state.v[None],

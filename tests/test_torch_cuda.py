@@ -9,8 +9,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (GJ_RES_RATIO, engine_instance, engine_iter_case,
-                        inv_residual, kkt_batch, ulp_tensor, world_rel)
+from chip_smoke import (DT, GJ_RES_RATIO, engine_instance, engine_iter_case,
+                        hull_grid_start, hull_scene, inv_residual, kkt_batch,
+                        plain_kernels, share, ulp, ulp_tensor, world_rel)
 from lcp_physics_tpu_torch.lcp.cone import ConeF
 from lcp_physics_tpu_torch.lcp.pdipm import _dtype_consts, initial_point
 from lcp_physics_tpu_torch.ops import ipm, linalg
@@ -514,3 +515,70 @@ def test_ipm_iter_kernel_shapes_match_plain(dev, C, q, n, dtype, lims):
         err = world_rel(g3[0][:, sl], r_)
         assert float(err.max()) <= lim, (float(err.max()), lim)
     assert torch.equal(g3[3], r3[3])
+
+
+def test_hull_grid_first_step_matches_plain(dev):
+    """bench.py's dense hull grid (B = 64, f32): the first step through the
+    kernels (K4 under the K2 = 256 factor) against the plain versions,
+    held to plain's own spread under one ulp of the positions."""
+    p0, v0 = hull_grid_start(64)
+    step, params, state = hull_scene(torch, dev, torch.float32, p0, v0)
+    before = linalg.LAUNCHES["gj_inv_blocked"]
+    with torch.no_grad():
+        s1, _ = step(params, state, DT)
+        assert linalg.LAUNCHES["gj_inv_blocked"] > before
+        with plain_kernels("the hull grid's comparison steps"):
+            s1_r, _ = step(params, state, DT)
+            step_u, params_u, state_u = hull_scene(
+                torch, dev, torch.float32, ulp(p0), v0)
+            s1_u, _ = step_u(params_u, state_u, DT)
+    e, e_u = (world_rel(s.v, s1_r.v) for s in (s1, s1_u))
+    assert float(e.median()) <= max(1e-5, 4 * float(e_u.median()))
+    assert share(e, 1e-3) >= share(e_u, 1e-3) - 0.05
+
+
+def test_backtrack_halvings_match_plain(dev):
+    """A unit box thrown at a held floor fast enough to tunnel (speculative
+    contacts off, tests/test_step.py's scene) and a far one: with the
+    penetration backtrack, the kernel path's halvings and states equal the
+    plain path's (f64)."""
+    from lcp_physics_tpu_torch.core import (JointSpec, WorldState,
+                                            default_params,
+                                            make_scene_static)
+    from lcp_physics_tpu_torch.parallel import make_batched_step
+    from lcp_physics_tpu_torch.utils import SimConfig
+    f64 = dict(dtype=torch.float64, device=dev)
+    verts = np.zeros((2, 4, 2))
+    verts[0] = [[-1, -1], [1, -1], [1, 1], [-1, 1]]
+    verts[1] = [[-50, -1], [50, -1], [50, 1], [-50, 1]]
+    static = make_scene_static([4, 4], joints=(JointSpec(
+        kind="total", body1=1, ref=(0.0, 0.0, 0.0)),))
+    params = default_params(static, verts=verts, radius=[0.0, 0.0],
+                            gravity=(0.0, 10.0), restitution=0.0, **f64)
+    p0 = torch.tensor([[[0., 0., -2.4], [0., 0., 0.]],
+                       [[0., 0., -30.], [0., 0., 0.]]], **f64)
+    v0 = torch.zeros(2, 2, 3, **f64)
+    v0[0, 0, 2] = 12.0
+    state = WorldState(p0, v0, torch.zeros(2, **f64))
+    step = make_batched_step(static, SimConfig(
+        speculative=False, tol=1e-6, penetration_backtrack=True,
+        max_dt_halvings=8))
+    out, d = step(params, state, 0.05)
+    with plain_kernels("the backtrack's comparison step"):
+        out_r, d_r = step(params, state, 0.05)
+    assert d.halvings.tolist() == d_r.halvings.tolist()
+    assert d.halvings[0] >= 1 and d.halvings[1] == 0
+    torch.testing.assert_close(out.p, out_r.p, rtol=1e-10, atol=1e-10)
+
+
+def test_world_defaults_to_the_card(dev):
+    """World() without device= puts its state and parameters on the card."""
+    from lcp_physics_tpu_torch.physics import (Circle, Rect, TotalConstraint,
+                                               World)
+    ball = Circle([0.0, 0.0], rad=1.0)
+    floor = Rect([0.0, 3.0], [20.0, 2.0])
+    w = World([ball, floor], [TotalConstraint(floor)], gravity=(0.0, 10.0))
+    assert w.world_state.p.device.type == "cuda"
+    assert w.scene_params.mass.device.type == "cuda"
+    w.step()
+    assert ball.p.device.type == "cuda"
