@@ -90,7 +90,20 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    World.step calls each (ms per World.step, counters moved, host
    reads), three Adam steps of the inference demo (its loss falls), and
    World.broadphase_pairs through the C++ sweep-and-prune.
-11. The card's name and power limit, a JSON line listing every kernel
+11. (s) Worlds sharded over ``parallel.make_mesh()`` (the card) and over
+   the card listed twice, [cuda:0, cuda:0] (a worker thread and a stream
+   per entry): the forward slice's rollout (B = 4096 f32, 20 steps) held
+   bit for bit to the unsharded step at batch_tile = B / shards, K1, K2
+   and K3 launched, host ms/step in turns with the unsharded step (and
+   with the two shards stepped by one thread), device events and ms per
+   step; the dense training step (B = 256 f32, 8 steps) over [cuda:0,
+   cuda:0], its loss bit for bit and its shared-parameter gradients
+   against the tiled step's, K4 launched; the sharded inference demo at
+   its defaults (256 worlds, 60 epochs; the mass within 0.3), then three
+   epochs on each mesh against each other; ``entry()`` and
+   ``dryrun_multichip(1)`` against ``(2, [cuda:0, cuda:0])``, contact-free
+   scenes that launch no solver kernel.
+12. The card's name and power limit, a JSON line listing every kernel
    (``ms``, ``plain_ms``, ``library_ms`` — one PyTorch call computing the
    same function where there is one, timed here only —, ``bound_ms`` and
    ``bound_by`` from the call's bytes and operations at the card's
@@ -1996,6 +2009,210 @@ def phase_world(torch, dev, smi):
           f"{moved}; {smi})")
 
 
+# ---------------------------------------------------------------------------
+# (s) Worlds sharded over a mesh, the sharded demo and the entry analogs.
+# ---------------------------------------------------------------------------
+
+def sharded_rollout(static, cfg, params, state, steps, mesh, dev):
+    """``parallel.batched_rollout`` over ``mesh``, gathered on ``dev``:
+    (final, trajectory)."""
+    from lcp_physics_tpu_torch.parallel import batched_rollout, gather
+    outs = batched_rollout(static, cfg, params, state, DT, steps, mesh=mesh)
+    return (gather([o[0] for o in outs], dev),
+            gather([o[1] for o in outs], dev, dim=1))
+
+
+def host_ms_in_turns(torch, runs, steps, turns=2):
+    """Host ms per step of each named no-argument run, timed in turns
+    (a b c c b a ...): {name: [ms, ...]}."""
+    out = {name: [] for name in runs}
+    order = list(runs)
+    for t in range(turns):
+        for name in (order if t % 2 == 0 else order[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[name]()
+            torch.cuda.synchronize()
+            out[name].append(1e3 * (time.perf_counter() - t0) / steps)
+    return out
+
+
+def phase_shard(torch, dev, smi):
+    """(s) Worlds sharded over ``parallel.make_mesh()`` (this machine's
+    cards) and over the card listed twice, [cuda:0, cuda:0]: (s1) the
+    forward slice, held bit for bit to the unsharded step at batch_tile =
+    B / shards, timed in turns with the unsharded step; (s2) the dense
+    training step, its loss bit for bit and its shared-parameter
+    gradients to the tiled step's; (s3) the sharded inference demo at its
+    defaults (mass within 0.3), then three epochs on each mesh; (s4)
+    ``entry()`` and ``dryrun_multichip``.  Returns the launch counts of
+    the (s1) and (s2) runs on [cuda:0, cuda:0]."""
+    import dataclasses
+    from lcp_physics_tpu_torch.core import make_scene_static, rollout
+    from lcp_physics_tpu_torch.demos import sharded_inference as si
+    from lcp_physics_tpu_torch.entry import dryrun_multichip, entry
+    from lcp_physics_tpu_torch.parallel import (make_batched_step,
+                                                make_mesh, shard_worlds)
+    from lcp_physics_tpu_torch.utils import SimConfig
+    f32 = torch.float32
+    one, two = make_mesh(), make_mesh([dev, dev])
+    print(f"  meshes: make_mesh() {[str(d) for d in one.devices]}, and "
+          f"{[str(d) for d in two.devices]}", flush=True)
+
+    # (s1) the forward slice
+    p0, v0 = slice_start(B)
+    static = make_scene_static([1] * N, c_max=C)
+    cfg = SimConfig(max_iter=15, solver_eps=1e-6)        # slice_scene's
+    _, params, state = slice_scene(torch, dev, f32, p0, v0)
+    runs = {"unsharded": lambda: rollout(make_batched_step(static, cfg),
+                                         params, state, DT, STEPS)}
+    launches = {}
+    with torch.no_grad():
+        for mesh in (one, two):
+            k = mesh.size
+            run = (lambda m: lambda: sharded_rollout(
+                static, cfg, params, state, STEPS, m, dev))(mesh)
+            run()                                  # warm-up, not counted
+            reads = host_reads()
+            reset_counts()
+            _, traj = run()
+            torch.cuda.synchronize()
+            launches[k] = launch_counts()
+            reads = (host_reads() - reads) / STEPS
+            tiled = make_batched_step(static, dataclasses.replace(
+                cfg, batch_tile=B // k))
+            _, ref = rollout(tiled, params, state, DT, STEPS)
+            diff = max(float((traj.p - ref.p).abs().max()),
+                       float((traj.v - ref.v).abs().max()))
+            moved = {n: c for n, c in launches[k].items() if c}
+            check(diff == 0.0,
+                  f"(s1) forward slice over {k} shard(s) (B={B}, f32, "
+                  f"{STEPS} steps) equals the unsharded step at batch_tile ="
+                  f" {B // k} bit for bit (largest difference {diff:.3e}); "
+                  f"{reads:.1f} host reads per step")
+            check(all(moved.get(n, 0) > 0 for n in ("lu", "solve",
+                                                    "fused_ipm")),
+                  f"(s1) {k} shard(s) launched K1, K2 and K3: {moved}")
+            runs[f"{k} shard(s)"] = run
+        # the same two shards stepped one after the other by this thread:
+        # what the worker threads cost beyond the split itself
+        runs["2 shards, one thread"] = lambda: [
+            rollout(make_batched_step(static, cfg), params, s, DT, STEPS)
+            for s in shard_worlds(state, two)]
+        host = host_ms_in_turns(torch, runs, STEPS)
+        for name, run in runs.items():
+            events, dev_ms = device_events(torch, run, STEPS)
+            shown = ("not measured" if events is None else
+                     f"{events:.0f} device events, {dev_ms:.3f} ms of "
+                     "device time")
+            print(f"  (s1) {name}: host ms/step in turns "
+                  f"{', '.join(f'{x:.2f}' for x in host[name])}; {shown} "
+                  f"per step ({smi})", flush=True)
+
+    # (s2) the dense training step over [cuda:0, cuda:0]
+    p0, v0 = grid_start(TRAIN_B, TRAIN_SIDE)
+    static = make_scene_static([1] * TRAIN_SIDE ** 2, c_max=TRAIN_C)
+    cfg = SimConfig(max_iter=12, solver_eps=1e-5)        # train_scene's
+    _, params, state = train_scene(torch, dev, f32, p0, v0, TRAIN_C)
+    leaves = (params.mass, params.restitution, params.fric_coeff)
+
+    def grads(final):
+        loss = (final.p ** 2).mean()
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    tiled = make_batched_step(static, dataclasses.replace(
+        cfg, batch_tile=TRAIN_B // 2))
+    train = {
+        "tiled": lambda: grads(rollout(tiled, params, state, DT,
+                                       TRAIN_STEPS)[0]),
+        "2 shards": lambda: grads(sharded_rollout(
+            static, cfg, params, state, TRAIN_STEPS, two, dev)[0])}
+    train["2 shards"]()                            # warm-up, not counted
+    reset_counts()
+    loss, g = train["2 shards"]()
+    torch.cuda.synchronize()
+    launches["train"] = launch_counts()
+    loss_r, g_r = train["tiled"]()
+    _, g_r2 = train["tiled"]()
+    rel = lambda a, r: float((a - r).abs().max() / r.abs().max())
+    e = max(rel(a, r) for a, r in zip(g, g_r))
+    e_self = max(rel(a, r) for a, r in zip(g_r2, g_r))
+    check(launches["train"]["gj_inv_blocked"] > 0,
+          f"(s2) the sharded dense training step launched K4 "
+          f"({launches['train']['gj_inv_blocked']} launches over "
+          f"{TRAIN_STEPS} steps fwd+bwd)")
+    # f32: each shared-parameter gradient sums 256 worlds' contributions
+    # over 8 steps in the autograd engine's order, which the shards'
+    # threads change; 1e-4 of its largest entry, or 4x the spread of the
+    # tiled step against itself if that is larger
+    check(float(loss) == float(loss_r) and e <= max(1e-4, 4 * e_self),
+          f"(s2) dense training step over [cuda:0, cuda:0] (B={TRAIN_B}, "
+          f"f32, {TRAIN_STEPS} steps): loss {float(loss):.6e} equals the "
+          f"tiled step's (batch_tile={TRAIN_B // 2}) bit for bit; mass, "
+          f"restitution, fric_coeff gradients within {e:.2e} of its "
+          f"largest entry (tiled against itself: {e_self:.2e})")
+    host = host_ms_in_turns(torch, train, 1)
+    print(f"  (s2) ms per fwd+bwd in turns: "
+          + "; ".join(f"{n} {', '.join(f'{x:.1f}' for x in v)}"
+                      for n, v in host.items()) + f" ({smi})", flush=True)
+
+    # (s3) the sharded inference demo at its defaults, then three epochs
+    # on each mesh
+    reset_counts()
+    t0 = time.perf_counter()
+    mass = si.main([])
+    sec = time.perf_counter() - t0
+    moved = {n: c for n, c in launch_counts().items() if c}
+    check(abs(mass - si.TRUE_MASS) < 0.3,
+          f"(s3) sharded_inference at its defaults on make_mesh() (256 "
+          f"worlds, {si.STEPS} steps, 60 epochs, f32) recovers the mass "
+          f"{mass:.4f} within 0.3 of {si.TRUE_MASS} "
+          f"({1e3 * sec / 60:.0f} ms per epoch with the set-up; {smi})")
+    check(not moved, f"(s3) its worlds stay off the floor over "
+                     f"{si.STEPS} steps: contact-free, no solver kernel "
+                     f"launched ({moved})")
+    hist = []
+    for mesh in (one, two):
+        static, true_params, state0 = si.build_scene(f32, dev)
+        states = si.randomized_states(state0, 256)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hist.append(si.fit(static, true_params, states, mesh, 3))
+        print(f"  (s3) 3 epochs on {mesh.size} shard(s): "
+              f"{1e3 * (time.perf_counter() - t0) / 3:.0f} ms per epoch "
+              f"with the ground truth", flush=True)
+    # f32: the shards run the batched library calls at B = 128, the one
+    # card at B = 256; the losses and gradients are means over the worlds
+    e = max(abs(a / b - 1) for h1, h2 in zip(*hist)
+            for a, b in zip(h1[:2], h2[:2]))
+    check(e <= 1e-4, f"(s3) 3 epochs over [cuda:0, cuda:0]: losses and "
+                     f"gradients within {e:.2e} (<= 1e-4) of "
+                     f"make_mesh()'s")
+
+    # (s4) the entry analogs
+    fn, args = entry()
+    reset_counts()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    moved = {n: c for n, c in launch_counts().items() if c}
+    check(out.p.shape == (4, 64, 3) and bool(torch.isfinite(out.p).all())
+          and not moved,
+          f"(s4) entry()'s step on the card: finite (4, 64, 3); the scene "
+          f"is contact-free, no solver kernel launched ({moved})")
+    reset_counts()
+    l1, g1 = dryrun_multichip(1)
+    l2, g2 = dryrun_multichip(2, devices=[dev, dev])
+    moved = {n: c for n, c in launch_counts().items() if c}
+    # identical worlds; means over 2 and 4 of them may round apart in
+    # f32, and d loss / d mass is zero in exact arithmetic
+    check(abs(l1 / l2 - 1) <= 1e-6 and max(g1, g2) <= 1e-5 and not moved,
+          f"(s4) dryrun_multichip(1) and (2, [cuda:0, cuda:0]) agree: loss"
+          f" {l1:.6f}, {l2:.6f}; grad|mass| {g1:.1e}, {g2:.1e} (round-off"
+          f" of a zero gradient); contact-free, no solver kernel "
+          f"launched ({moved})")
+    return launches[2], launches["train"]
+
+
 def phase_turns(parent, smi):
     """The seven kernels of the checkout at ``parent`` and of this tree,
     device time, in turns parent, this, this, parent
@@ -2069,6 +2286,11 @@ def main():
     phase_stab(torch, dev, smi)
     print("== (w) the object layer: World, the demos", flush=True)
     phase_world(torch, dev, smi)
+    print("== (s) worlds sharded over a mesh, the sharded demo, the entry "
+          "analogs", flush=True)
+    shard_launches, shard_train = phase_shard(torch, dev, smi)
+    print(f"sharded path launches: forward slice {shard_launches}; "
+          f"training step {shard_train}", flush=True)
 
     src = "lcp_physics_tpu_torch/csrc/"
     rows = [("lu", src + "lu.cu", "lcp_physics_tpu/ops/linalg.py:113",

@@ -17,9 +17,13 @@ wrapper runs its plain torch version instead.
 - ``lcp``      — the batched differentiable mixed-LCP/QP solver
   (``lcp_solve``, ``lcp_solve_full``, ``LCPFunction``, ``solve_eq_kkt``).
 - ``ops``      — the LU, substitution, Gauss-Jordan and fused-IPM kernels.
-- ``parallel`` — world-batch helpers.
+- ``parallel`` — the batched step, and worlds sharded over a mesh of
+  devices (``make_mesh``, ``make_sharded_step``, ``batched_rollout``).
+- ``entry``    — the driver entry analogs (``entry``,
+  ``dryrun_multichip``).
 - ``native``   — the host-side sweep-and-prune broadphase (C++).
-- ``demos``    — hello_world, chain, inference and billiards.
+- ``demos``    — hello_world, chain, inference, billiards and
+  sharded_inference.
 """
 
 __version__ = "0.1.0"

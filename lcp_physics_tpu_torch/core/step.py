@@ -43,7 +43,7 @@ from lcp_physics_tpu_torch.core.state import (SceneParams, SceneStatic,
 from lcp_physics_tpu_torch.lcp import lcp_solve
 from lcp_physics_tpu_torch.lcp.cone import ConeF
 from lcp_physics_tpu_torch.lcp.pdipm import _dtype_consts
-from lcp_physics_tpu_torch.utils import SimConfig
+from lcp_physics_tpu_torch.utils import SimConfig, bump
 
 # Host reads of the step's Python branches (module docstring).
 HOST_READS = {"contact_gate": 0, "penetration_gate": 0, "post_stab": 0,
@@ -413,7 +413,7 @@ def make_step_batched(static: SceneStatic, config: SimConfig = SimConfig(),
 
 def _gate(name, flag):
     """One host read of a device flag (any world), counted."""
-    HOST_READS[name] += 1
+    bump(HOST_READS, name)
     return bool(flag.any())
 
 

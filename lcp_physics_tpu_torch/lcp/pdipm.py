@@ -46,6 +46,7 @@ import torch
 
 from lcp_physics_tpu_torch.lcp.cone import ConeF
 from lcp_physics_tpu_torch.ops import ipm, ipm_iter, linalg
+from lcp_physics_tpu_torch.utils import bump
 
 HOST_READS = {"ipm_loop": 0, "verbose": 0}
 BACKENDS = ("auto", "pallas", "fused", "xla")
@@ -618,7 +619,7 @@ def unfused_loop(kkt_factor, pk, z, s, lam, nu, *, max_iter, tol, consts,
     stall = torch.zeros(B, dtype=torch.int32, device=dev)
     for i in range(max_iter):
         if i:
-            HOST_READS["ipm_loop"] += 1
+            bump(HOST_READS, "ipm_loop")
             if bool(done.all()):
                 break
         merit, r = pk.merit(X)
@@ -637,7 +638,7 @@ def unfused_loop(kkt_factor, pk, z, s, lam, nu, *, max_iter, tol, consts,
         new_done = done | (merit < tol) | stalled
         iters = torch.where(new_done & ~done, i, iters)
         if verbose:   # the reference's residual dump: one host read
-            HOST_READS["verbose"] += 1
+            bump(HOST_READS, "verbose")
             mu_max, r_max, d = torch.stack([
                 mu.amax(), pk.resid_norm(r).amax(),
                 new_done.sum().to(dt)]).tolist()

@@ -33,6 +33,7 @@ import torch
 from lcp_physics_tpu_torch.lcp.cone import ConeF
 from lcp_physics_tpu_torch.ops import _build
 from lcp_physics_tpu_torch.ops.linalg import gj_inv_ref
+from lcp_physics_tpu_torch.utils import bump
 
 MAX_FUSED_K = 48
 LAUNCHES = {"fused_ipm": 0, "fused_ipm_unrot": 0}
@@ -414,7 +415,7 @@ def _loop_cuda(P, Ghat, qinv, p, h, b, mu_v, valid, row_mask, z0, s0, lam0,
         float(consts["dinv_max"]), int(not_improved_lim), float(stall_rtol),
         ghat_smem, KB, W, _build.stream_ptr(lib, dev))
     _build.check(lib, rc, "fused_ipm")
-    LAUNCHES["fused_ipm" if rot else "fused_ipm_unrot"] += 1
+    bump(LAUNCHES, "fused_ipm" if rot else "fused_ipm_unrot")
     return z, s, lam, nu, mu_c, resid, iters
 
 

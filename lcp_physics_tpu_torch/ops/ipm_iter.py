@@ -32,6 +32,7 @@ import torch
 from lcp_physics_tpu_torch.ops import _build
 from lcp_physics_tpu_torch.ops.ipm import SMEM_LIMIT
 from lcp_physics_tpu_torch.ops.linalg import MAX_LANE_N, PANEL, _ru
+from lcp_physics_tpu_torch.utils import bump
 
 MAX_ITER_K = 2 * PANEL
 LAUNCHES = {"ipm_iter": 0}
@@ -251,7 +252,7 @@ def _iter_cuda(inv, Ghat, qinv, p, h, b, mu_v, valid, row_mask, X, bestX,
         int(not_improved_lim), float(stall_rtol),
         _build.stream_ptr(lib, dev))
     _build.check(lib, rc, "ipm_iter")
-    LAUNCHES["ipm_iter"] += 1
+    bump(LAUNCHES, "ipm_iter")
     return tuple(outs)
 
 
@@ -280,7 +281,7 @@ def _loop(step, Ghat, qinv, p, h, b, mu_v, valid, row_mask, X0, *, C,
     for i in range(max_iter):
         if i:
             if host_reads is not None:
-                host_reads["ipm_loop"] += 1
+                bump(host_reads, "ipm_loop")
             if bool((state[:, 1] > 0.5).all()):
                 break
         s, lam = X[:, n:n + m], X[:, n + m:n + 2 * m]

@@ -42,6 +42,7 @@ from typing import NamedTuple
 import torch
 
 from lcp_physics_tpu_torch.ops import _build
+from lcp_physics_tpu_torch.utils import bump
 
 MAX_LANE_N = 88
 LANE_BUCKETS = (8, 16, 24, 32, 48, 64, 88)   # csrc/lu.cu's compile-time sizes
@@ -271,7 +272,7 @@ def lu_factor(K):
         _build.ptr(K), _build.ptr(lu), B, n, shape.bucket,
         shape.worlds_per_cta, _build.stream_ptr(lib, K.device))
     _build.check(lib, rc, "lu_factor")
-    LAUNCHES["lu"] += 1
+    bump(LAUNCHES, "lu")
     return lu
 
 
@@ -291,7 +292,7 @@ def lu_solve(lu, r, trans=0):
         _build.ptr(lu), _build.ptr(r), _build.ptr(x), B, n, int(trans),
         shape.bucket, shape.worlds_per_cta, _build.stream_ptr(lib, r.device))
     _build.check(lib, rc, "lu_solve")
-    LAUNCHES["solve_t" if trans else "solve"] += 1
+    bump(LAUNCHES, "solve_t" if trans else "solve")
     return x
 
 
@@ -317,7 +318,7 @@ def gj_inv_blocked(K):
     rc = lib.lcp_gj_inv_blocked_f32(_build.ptr(K), _build.ptr(out), B, P,
                                     _build.stream_ptr(lib, K.device))
     _build.check(lib, rc, "gj_inv_blocked")
-    LAUNCHES["gj_inv_blocked"] += 1
+    bump(LAUNCHES, "gj_inv_blocked")
     return out
 
 
@@ -337,7 +338,7 @@ def gj_inv(K):
         _build.ptr(K), _build.ptr(out), B, P, shape.bucket, shape.cluster,
         _build.stream_ptr(lib, K.device))
     _build.check(lib, rc, "gj_inv")
-    LAUNCHES["gj_inv"] += 1
+    bump(LAUNCHES, "gj_inv")
     return out
 
 

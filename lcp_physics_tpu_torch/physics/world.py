@@ -30,6 +30,7 @@ from lcp_physics_tpu_torch.physics.contacts import (DiffContactHandler,
                                                     OdeContactHandler)
 from lcp_physics_tpu_torch.physics.engines import Engine, PdipmEngine
 from lcp_physics_tpu_torch.physics.utils import Defaults, SimConfig
+from lcp_physics_tpu_torch.utils import bump
 
 HOST_READS = {"world_step": 0}
 
@@ -225,7 +226,7 @@ class World:
                 ok = False
                 for _ in range(cfg.max_dt_halvings + 1):
                     new_state, diag = step_fn(params, state, dt_try)
-                    HOST_READS["world_step"] += 1
+                    bump(HOST_READS, "world_step")
                     post, pre = torch.stack(
                         [diag.max_penetration, diag.pre_penetration]
                     ).tolist()

@@ -11,9 +11,20 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
+import threading
 
 import numpy as np
 import torch
+
+_COUNT_LOCK = threading.Lock()
+
+
+def bump(counts, key, n=1):
+    """``counts[key] += n`` under one process-wide lock.  The port's
+    launch and host-read counters are bumped from the worker threads of a
+    sharded step (``parallel``), where a bare ``+=`` can lose counts."""
+    with _COUNT_LOCK:
+        counts[key] += n
 
 
 class Indices:

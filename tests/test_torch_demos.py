@@ -3,7 +3,9 @@ as tests/test_demos.py runs the JAX package's: hello_world and chain build
 and run; inference and billiards take their loss and gradient through the
 port's ``make_step`` and ``rollout``, held to the JAX demos' (f64, CPU;
 loss 1e-10, gradient 1e-8), and one step along the gradient lowers the
-loss."""
+loss.  sharded_inference's epoch-0 loss and gradient over 4 CPU shards are
+held to the JAX demo's at 1e-8."""
+import math
 import runpy
 
 import jax
@@ -13,7 +15,8 @@ import torch
 
 from lcp_physics_tpu_torch.core import make_step
 from lcp_physics_tpu_torch.demos import billiards, chain, hello_world
-from lcp_physics_tpu_torch.demos import inference
+from lcp_physics_tpu_torch.demos import inference, sharded_inference
+from lcp_physics_tpu_torch.parallel import batched_rollout, make_mesh
 from lcp_physics_tpu_torch.physics import run_world
 from lcp_physics_tpu_torch.utils import SimConfig
 from test_torch_pdipm import one_torch_thread  # noqa: F401
@@ -114,3 +117,65 @@ def test_billiards_loss_and_gradient_match_jax():
         l1 = billiards.loss_fn(step, params, state0,
                                cue_v - 1e-2 * g0 / g0.norm())
     assert float(l1) < float(l0.detach())
+
+
+def test_sharded_inference_loss_and_gradient_match_jax():
+    """The demo's loss and d loss / d log(mass) at epoch 0 (mass 0.6 of
+    the true one), B = 8 worlds over 4 CPU shards, against the JAX demo's
+    loss recomputed from its build_scene and randomized_states (1e-8);
+    one Adam step at the demo's rate lowers the loss."""
+    mod = runpy.run_path("demos/sharded_inference.py")
+    from lcp_physics_tpu.parallel import batched_rollout as jbatched_rollout
+    from lcp_physics_tpu.parallel import make_batched_step as jbatched_step
+    from lcp_physics_tpu.utils import SimConfig as JSimConfig
+    B, steps, dt = 8, mod["STEPS"], mod["DT"]
+    jstatic, jtrue, jstate0 = mod["build_scene"]()
+    jstates = mod["randomized_states"](jstate0, B)
+    _, jtraj = jbatched_rollout(jstatic, JSimConfig(), jtrue, jstates, dt,
+                                steps)
+    jtarget = jtraj.p[:, :, 0, 1:3]
+    bstep = jbatched_step(jstatic, JSimConfig())
+
+    def jloss(log_mass):
+        p = jtrue.__class__(**{**jtrue.__dict__, "mass": jtrue.mass.at[0]
+                               .set(jnp.exp(log_mass))})
+
+        def body(s, _):
+            s2, _ = bstep(p, s, dt)
+            return s2, s2.p[:, 0, 1:3]
+
+        _, track = jax.lax.scan(body, jstates, None, length=steps)
+        return jnp.mean((track - jtarget) ** 2)
+
+    log_m0 = math.log(0.6 * sharded_inference.TRUE_MASS)
+    l_jax, g_jax = jax.jit(jax.value_and_grad(jloss))(log_m0)
+
+    si = sharded_inference
+    static, true_params, state0 = si.build_scene(**F64)
+    states = si.randomized_states(state0, B)
+    mesh = make_mesh(["cpu"] * 4)
+    with torch.no_grad():
+        target = si.ball_track(batched_rollout(
+            static, SimConfig(), true_params, states, si.DT, si.STEPS,
+            mesh=mesh), "cpu")
+    np.testing.assert_allclose(target.numpy(), np.asarray(jtarget),
+                               rtol=1e-10, atol=1e-9)
+    log_mass = torch.tensor(log_m0, **F64, requires_grad=True)
+    l0, g0 = si.loss_and_grad(log_mass, static, true_params, states, target,
+                              mesh)
+    np.testing.assert_allclose(float(l0), float(l_jax), rtol=1e-8)
+    np.testing.assert_allclose(float(g0), float(g_jax), rtol=1e-8)
+    opt = torch.optim.Adam([log_mass], lr=0.1)
+    log_mass.grad = g0
+    opt.step()
+    l1, _ = si.loss_and_grad(log_mass, static, true_params, states, target,
+                             mesh)
+    assert float(l1) < float(l0)
+
+
+def test_sharded_inference_main_on_cpu():
+    """``main`` on a 2-entry CPU mesh, 4 worlds, 2 epochs: the mass moves
+    from its 0.6 start towards the true one."""
+    mass = sharded_inference.main(["--device", "cpu", "--shards", "2",
+                                   "--worlds", "4", "--epochs", "2"])
+    assert 0.6 * sharded_inference.TRUE_MASS < mass < 2.0 * 1.3

@@ -163,14 +163,16 @@ def test_state_and_params_conversion():
 
 
 def test_import_leaves_jax_out():
-    """The package, its object layer, demos, native broadphase and
-    checkpoints, and chip_smoke.py import neither jax nor the JAX
-    package."""
+    """The package, its object layer, sharding, entry analogs, demos,
+    native broadphase and checkpoints, and chip_smoke.py import neither
+    jax nor the JAX package."""
     mods = ["lcp_physics_tpu_torch", "lcp_physics_tpu_torch.physics",
             "lcp_physics_tpu_torch.native",
+            "lcp_physics_tpu_torch.parallel", "lcp_physics_tpu_torch.entry",
             "lcp_physics_tpu_torch.utils.checkpoint", "chip_smoke"] + [
         f"lcp_physics_tpu_torch.demos.{d}"
-        for d in ("hello_world", "chain", "inference", "billiards")]
+        for d in ("hello_world", "chain", "inference", "billiards",
+                  "sharded_inference")]
     code = (f"import sys, {', '.join(mods)}; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'lcp_physics_tpu.')) or "
