@@ -103,11 +103,30 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    epochs on each mesh against each other; ``entry()`` and
    ``dryrun_multichip(1)`` against ``(2, [cuda:0, cuda:0])``, contact-free
    scenes that launch no solver kernel.
-12. The card's name and power limit, a JSON line listing every kernel
+12. (v) The f32 physics-quality guard (``lcp_physics_tpu_torch.tools.
+   validate_f32``) at full length at both profiles (production and
+   solver_refine=2): the dense grid's penetration over 500 steps, the
+   free cluster's momentum over 200, the box stack over 300, the bounce
+   law over 500; each value printed, all 8 must pass at the JAX tool's
+   thresholds, and each scene must launch its kernels (K3 for the bounce,
+   K1/K2 for the stack, K4 for the cluster and the grid).  With
+   ``--grid-hold`` the script runs only phase 1 and the production dense
+   grid held against float32 chaos: through the kernels at p and at
+   p + 1 ulp, through the plain versions at both (~15 min).
+13. (g) Big single worlds (``lcp_physics_tpu_torch.tools.bigworld``): the
+   dense grid at N = 64, 144, 256 and 361 bodies (K2 up to 1536, 12
+   panels), the hull grid at N = 144 with hull_pair_budget 0 and 1024,
+   and N = 400 at c_max = 800 (K2 = 1600, past the blocked cap, through
+   the library LU), 8 f32 steps each: host ms, device ms (events) and
+   busy ms (profiler) per step, K4 launches and library-LU routings per
+   step; the 12-panel path held to the plain versions at f64 (B = 2, one
+   capped step, K5) and f32 (B = 32, by distribution).
+14. The card's name and power limit, a JSON line listing every kernel
    (``ms``, ``plain_ms``, ``library_ms`` — one PyTorch call computing the
    same function where there is one, timed here only —, ``bound_ms`` and
    ``bound_by`` from the call's bytes and operations at the card's
-   published peaks, launches on its path), then the contract line
+   published peaks, launches on its path plus those of (v) and (g)),
+   then the contract line
    ``{"ok": true, "device": {...}}`` last.
 
 Any failed check raises; the script exits non-zero without the last line.
@@ -2213,6 +2232,165 @@ def phase_shard(torch, dev, smi):
     return launches[2], launches["train"]
 
 
+# ---------------------------------------------------------------------------
+# The f32 physics-quality guard and big single worlds.
+# ---------------------------------------------------------------------------
+
+# the kernels each guard check's rollout must launch
+GUARD_PATHS = {("bounce", "production"): ("fused_ipm",),
+               ("bounce", "refine2"): ("lu", "solve"),
+               ("stack", "production"): ("lu", "solve"),
+               ("stack", "refine2"): ("lu", "solve"),
+               ("free", "production"): ("gj_inv_blocked",),
+               ("free", "refine2"): ("gj_inv_blocked",),
+               ("dense", "production"): ("gj_inv_blocked",),
+               ("dense", "refine2"): ("gj_inv_blocked",)}
+
+
+def phase_guard(torch, dev, smi):
+    """(v) The f32 physics-quality guard (lcp_physics_tpu_torch.tools.
+    validate_f32) at full length at both profiles: each check's value,
+    seconds and launches printed, then every one of the 8 must pass and
+    each scene must have launched its kernels.  Returns the launch counts
+    of the run."""
+    from lcp_physics_tpu_torch.tools import validate_f32
+    reset_counts()
+    t0 = time.perf_counter()
+    records = validate_f32.run_checks(str(dev))
+    sec = time.perf_counter() - t0
+    launches = launch_counts()
+    for r in records:
+        print(f"  {'PASS' if r['ok'] else 'FAIL'} {r['name']}: {r['detail']};"
+              f" {r['seconds']:.1f} s ({1e3 * r['seconds'] / r['steps']:.1f} "
+              f"ms/step); launches {r['launches']}", flush=True)
+    check(len(records) == 8, "(v) the guard ran its 8 checks")
+    for r in records:
+        check(r["ok"], f"(v) {r['name']} at full length: {r['detail']}")
+        need = GUARD_PATHS[(r["scene"], r["profile"])]
+        check(all(r["launches"].get(k, 0) > 0 for k in need),
+              f"(v) {r['name']} launched {need}: {r['launches']}")
+    print(f"  (v) the guard took {sec:.1f} s ({smi})", flush=True)
+    return launches
+
+
+GRID_SPREAD = 4   # the kernels' grid penetration against the plain versions'
+
+
+def hold_guard_grid(torch, dev, smi):
+    """``--grid-hold``: the guard's production dense grid (500 steps
+    through the kernels) held against float32 chaos on the card: the same
+    rollout at p + 1 ulp through the kernels, and through the plain
+    versions at p and at p + 1 ulp.  The kernels' two penetrations must be
+    at most GRID_SPREAD times the larger of the plain versions' two.  The
+    plain rollouts take ~400 s each, so the default run leaves it out."""
+    from lcp_physics_tpu_torch.tools import validate_f32 as V
+    rec = V.run_check("dense", "production", str(dev))
+    print(f"  {rec['detail']}; {rec['seconds']:.1f} s; launches "
+          f"{rec['launches']}", flush=True)
+    pen = rec["value"]
+    spec = V.dense_grid_spec()
+    moved = spec._replace(p=ulp(spec.p))
+    dt, steps, _ = V.LENGTHS["dense"]
+    config = V.PROFILES["production"]
+
+    def max_pen(sp):
+        static, params, state = V.build(sp, torch.float32, dev)
+        return V.run_scene(static, config, params, state, dt, steps)[3]
+
+    t0 = time.perf_counter()
+    pen_u = max_pen(moved)
+    with plain_kernels("the dense grid's plain rollouts"):
+        plain, plain_u = max_pen(spec), max_pen(moved)
+    check(max(pen, pen_u) <= GRID_SPREAD * max(plain, plain_u),
+          f"(v) dense grid [production], {steps} steps: max penetration "
+          f"kernels {pen:.4f} (p + 1 ulp {pen_u:.4f}), plain versions on "
+          f"the card {plain:.4f} (p + 1 ulp {plain_u:.4f}); the kernels' "
+          f"within {GRID_SPREAD}x of plain's larger; "
+          f"{time.perf_counter() - t0:.1f} s ({smi})")
+
+
+BIG_CAP_N, BIG_CAP_C = 361, 768   # K2 = 1536: 12 panels, at the cap
+
+
+def phase_bigworld(torch, dev, smi):
+    """(g) Big single worlds (lcp_physics_tpu_torch.tools.bigworld): each
+    of its configurations probed for bigworld.STEPS f32 steps, its record
+    printed; K4 launched by every blocked one, and the K2 = 1600 case
+    through the library LU with no K4.  Then the 12-panel path held to
+    the plain versions: f64 at B = 2, one step with the IPM capped (K5 per
+    panel), each world within 1e-8; f32 at B = 32, one full step, by
+    distribution against plain's one-ulp spread.  Returns the launch
+    counts of the probes and of the f64 step through the kernels."""
+    from lcp_physics_tpu_torch.core import WorldState
+    from lcp_physics_tpu_torch.ops import linalg
+    from lcp_physics_tpu_torch.parallel import make_batched_step
+    from lcp_physics_tpu_torch.tools import bigworld
+    from lcp_physics_tpu_torch.utils import SimConfig
+    reset_counts()
+    for N_, B_, c_max, hulls, budget in bigworld.CONFIGS:
+        rec = bigworld.probe(N_, B_, bigworld.STEPS, hulls=hulls,
+                             hull_budget=budget, c_max=c_max, device=dev)
+        final = rec.pop("final")
+        shown = {k: (f"{v:.3f}" if isinstance(v, float) else v)
+                 for k, v in rec.items()}
+        print(f"  (g) {json.dumps(shown)} ({smi})", flush=True)
+        check(bool(torch.isfinite(final.p).all()
+                   and torch.isfinite(final.v).all()),
+              f"(g) N={N_} B={B_} K2={rec['K2']}: the final state is finite")
+        if rec["panels"]:
+            check(rec["k4_per_step"] > 0,
+                  f"(g) N={N_} K2={rec['K2']} ({rec['panels']} panels) "
+                  f"launched K4, {rec['k4_per_step']:.1f} a step")
+        if rec["K2"] > linalg.MAX_BLOCKED_N:
+            check(rec["library_lu_per_step"] > 0 and rec["k4_per_step"] == 0,
+                  f"(g) N={N_} K2={rec['K2']}: the library LU "
+                  f"({rec['library_lu_per_step']:.1f} routings a step), no K4")
+    launches = launch_counts()
+
+    # the 12-panel path against the plain versions
+    f32, f64 = torch.float32, torch.float64
+    cap = SimConfig(max_iter=CAP_ITERS, solver_eps=0.0, solver_stall_lim=0)
+    t0 = time.perf_counter()
+    static, params, states = bigworld.build_grid_scene(
+        BIG_CAP_N, 2, c_max=BIG_CAP_C, dtype=f64, device=dev)
+    step = make_batched_step(static, cap)
+    reset_counts()
+    with torch.no_grad():
+        s1, _ = step(params, states, bigworld.DT)
+        held = launch_counts()
+        with plain_kernels("the 12-panel f64 comparison step"):
+            s1_r, _ = step(params, states, bigworld.DT)
+    check(held["gj_inv"] > 0 and held["gj_inv_blocked"] == 0,
+          f"(g) the f64 12-panel step launched K5 ({held['gj_inv']}), no K4")
+    launches = {k: n + held[k] for k, n in launches.items()}
+    e = world_rel(s1.v, s1_r.v)
+    check(float(e.max()) <= 1e-8,
+          f"(g) N={BIG_CAP_N} K2={2 * BIG_CAP_C} (12 panels) f64, one step "
+          f"capped at {CAP_ITERS} IPM iterations: v kernel vs plain within "
+          f"{float(e.max()):.2e} in every world (<= 1e-8); "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    static, params, states = bigworld.build_grid_scene(
+        BIG_CAP_N, 32, c_max=BIG_CAP_C, dtype=f32, device=dev)
+    step = make_batched_step(static, SimConfig(max_iter=12, solver_eps=1e-5))
+    moved = WorldState(torch.tensor(ulp(states.p.cpu().numpy()), dtype=f32,
+                                    device=dev), states.v, states.t)
+    with torch.no_grad():
+        s1, _ = step(params, states, bigworld.DT)
+        with plain_kernels("the 12-panel f32 comparison steps"):
+            s1_r, _ = step(params, states, bigworld.DT)
+            s1_u, _ = step(params, moved, bigworld.DT)
+    e, e_u = (world_rel(s.v, s1_r.v) for s in (s1, s1_u))
+    check(float(e.median()) <= max(1e-5, 4 * float(e_u.median()))
+          and share(e, 1e-3) >= share(e_u, 1e-3) - 0.05,
+          f"(g) N={BIG_CAP_N} K2={2 * BIG_CAP_C} (12 panels) f32, B=32, one "
+          f"step: v kernel vs plain, median world {float(e.median()):.2e}, "
+          f"within 1e-3 on {share(e, 1e-3):.2%} (plain at p+1ulp: median "
+          f"{float(e_u.median()):.2e}, within 1e-3 on {share(e_u, 1e-3):.2%})"
+          f"; {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def phase_turns(parent, smi):
     """The seven kernels of the checkout at ``parent`` and of this tree,
     device time, in turns parent, this, this, parent
@@ -2234,6 +2412,10 @@ def main():
     ap.add_argument("--parent", metavar="DIR",
                     help="a checkout of an earlier commit: also time its "
                          "kernels and this tree's in turns")
+    ap.add_argument("--grid-hold", action="store_true",
+                    help="only hold the f32 guard's production dense grid "
+                         "against the plain versions' one-ulp spread "
+                         "(~15 min)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2241,10 +2423,19 @@ def main():
     sys.path.insert(0, ROOT)
     import lcp_physics_tpu_torch  # noqa: F401  (fails outside the repo)
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
 
-    print("== device", flush=True)
+    def header(title):
+        print(f"{title} [at {time.perf_counter() - t_start:.0f} s]",
+              flush=True)
+
+    header("== device")
     smi = phase_device(torch)
-    print("== kernels vs plain versions", flush=True)
+    if args.grid_hold:
+        header("== (v) the guard's production dense grid against f32 chaos")
+        hold_guard_grid(torch, dev, smi)
+        return 0
+    header("== kernels vs plain versions")
     stats = phase_lu(torch, dev)
     stats.update(phase_fused(torch, dev))
     stats.update(phase_fused(torch, dev, rot=False))
@@ -2257,58 +2448,62 @@ def main():
               f"library call {lib}, bound {s['bound_ms']:.4f} ms by "
               f"{s['bound_by']}) at its path's shape, device time", flush=True)
     if args.parent:
-        print(f"== kernels of {args.parent} and of this tree in turns",
-              flush=True)
+        header(f"== kernels of {args.parent} and of this tree in turns")
         phase_turns(args.parent, smi)
-    print("== forward slice: batched 8-circle contact rollout", flush=True)
+    header("== forward slice: batched 8-circle contact rollout")
     launches = phase_slice(torch, dev, smi)
-    print("== training slice: dense 64-circle fwd+bwd", flush=True)
+    header("== training slice: dense 64-circle fwd+bwd")
     train32, train64 = phase_train(torch, dev, smi)
-    print("== backward of the touching 8-circle line", flush=True)
+    header("== backward of the touching 8-circle line")
     phase_line(torch, dev, smi)
-    print("== path (b): the dense forward through K6 (FUSE_ITER)", flush=True)
+    header("== path (b): the dense forward through K6 (FUSE_ITER)")
     fuse_iter = phase_fuse_iter(torch, dev, smi)
-    print("== path (a): the dense training step at solver_refine=1",
-          flush=True)
+    header("== path (a): the dense training step at solver_refine=1")
     phase_refine(torch, dev, smi)
-    print("== path (c): the library API, lcp_solve(fric_pair=False), on the "
-          "benchmark scene's LCPs", flush=True)
+    header("== path (c): the library API, lcp_solve(fric_pair=False), on "
+           "the benchmark scene's LCPs")
     lcp_launches = phase_lcp(torch, dev, smi)
-    print("== solver_stats at full width", flush=True)
+    header("== solver_stats at full width")
     phase_stats(torch, dev, smi)
-    print("== the f64 JAX record of lcp_solve(fric_pair=False)", flush=True)
+    header("== the f64 JAX record of lcp_solve(fric_pair=False)")
     hold_lcp_record(torch, dev)
-    print("== (h) the hull grid: bench.py's dense 64-square scene",
-          flush=True)
+    header("== (h) the hull grid: bench.py's dense 64-square scene")
     phase_hull(torch, dev, smi)
-    print("== (p) post-stabilization and the penetration backtrack",
-          flush=True)
+    header("== (p) post-stabilization and the penetration backtrack")
     phase_stab(torch, dev, smi)
-    print("== (w) the object layer: World, the demos", flush=True)
+    header("== (w) the object layer: World, the demos")
     phase_world(torch, dev, smi)
-    print("== (s) worlds sharded over a mesh, the sharded demo, the entry "
-          "analogs", flush=True)
+    header("== (s) worlds sharded over a mesh, the sharded demo, the entry "
+           "analogs")
     shard_launches, shard_train = phase_shard(torch, dev, smi)
     print(f"sharded path launches: forward slice {shard_launches}; "
           f"training step {shard_train}", flush=True)
+    header("== (v) the f32 physics-quality guard at full length")
+    guard = phase_guard(torch, dev, smi)
+    header("== (g) big single worlds")
+    big = phase_bigworld(torch, dev, smi)
+    print(f"guard launches {guard}; big-world launches {big}", flush=True)
+    header("== done")
 
     src = "lcp_physics_tpu_torch/csrc/"
+    # each kernel's launches: its path's run, plus the guard's and the big
+    # worlds' where they launch it
     rows = [("lu", src + "lu.cu", "lcp_physics_tpu/ops/linalg.py:113",
-             launches),
+             (launches, guard, big)),
             ("solve", src + "lu.cu", "lcp_physics_tpu/ops/linalg.py:709",
-             launches),
+             (launches, guard, big)),
             ("fused_ipm", src + "fused_ipm.cu",
-             "lcp_physics_tpu/ops/ipm.py:108", launches),
+             "lcp_physics_tpu/ops/ipm.py:108", (launches, guard, big)),
             ("fused_ipm_unrot", src + "fused_ipm.cu",
-             "lcp_physics_tpu/ops/ipm.py:108", lcp_launches),
+             "lcp_physics_tpu/ops/ipm.py:108", (lcp_launches,)),
             ("gj_inv_blocked", src + "gj_inv.cu",
-             "lcp_physics_tpu/ops/linalg.py:238", train32),
+             "lcp_physics_tpu/ops/linalg.py:238", (train32, guard, big)),
             ("gj_inv", src + "gj_inv.cu",
-             "lcp_physics_tpu/ops/linalg.py:150", train64),
+             "lcp_physics_tpu/ops/linalg.py:150", (train64, big)),
             ("ipm_iter", src + "ipm_iter.cu",
-             "lcp_physics_tpu/ops/ipm_iter.py:102", fuse_iter)]
+             "lcp_physics_tpu/ops/ipm_iter.py:102", (fuse_iter,))]
     kernels = [dict(name=name, route="cuda", source=source, replaces=rep,
-                    launches=counts[name], **stats[name])
+                    launches=sum(c[name] for c in counts), **stats[name])
                for name, source, rep, counts in rows]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

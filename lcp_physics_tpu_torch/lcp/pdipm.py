@@ -20,9 +20,11 @@ The KKT factor (``make_kkt_factor``) takes the JAX package's four forms:
 
 Each system is formed whole and factored by the lane LU (``ops.linalg``,
 K <= 88) or the blocked LU over 128-panels (K > 88); ``backend='xla'``
-takes the row-pivoted library LU instead, and only when the caller names
-it.  ``refine`` > 0 adds iterative refinement to every solve: on rotated
-blocked systems of at most two panels the factor becomes the explicit
+takes the row-pivoted library LU instead.  As in the JAX package, a
+system past ``linalg.MAX_BLOCKED_N`` rows takes the library LU under
+every backend (``resolve_backend``, counted in ``ROUTES``).  A positive
+``refine`` adds iterative refinement to every solve: on rotated blocked
+systems of at most two panels the factor becomes the explicit
 inverse and each solve one matvec plus ``INV_REFINE + refine`` steps
 against the structured system; elsewhere ``refine`` steps against the
 assembled one.  After the initial Newton solve the iterations run in the
@@ -49,6 +51,9 @@ from lcp_physics_tpu_torch.ops import ipm, ipm_iter, linalg
 from lcp_physics_tpu_torch.utils import bump
 
 HOST_READS = {"ipm_loop": 0, "verbose": 0}
+# Factor sites whose system the size rule of resolve_backend sent to the
+# pivoted library LU (torch.linalg.lu_factor).
+ROUTES = {"library_lu": 0}
 BACKENDS = ("auto", "pallas", "fused", "xla")
 _SQ2 = math.sqrt(2.0)
 
@@ -83,6 +88,21 @@ def _check_backend(backend):
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got "
                          f"{backend!r}")
+
+
+def resolve_backend(backend, nk):
+    """The backend a factor site uses for an ``nk``-row system: the size
+    rule of the JAX package's ``resolve_backend`` without its platform
+    rule.  Past ``linalg.MAX_BLOCKED_N`` rows, where the port's pivotless
+    factors stop, every backend becomes ``'xla'`` (the pivoted library LU,
+    each such routing counted in ``ROUTES``); otherwise the backend stays.
+    Every factor site treats a backend other than ``'xla'`` alike (as the
+    JAX package treats ``'fused'`` outside its fused loop): the port's
+    kernels on a CUDA tensor, their plain versions on a CPU tensor."""
+    if backend != "xla" and nk > linalg.MAX_BLOCKED_N:
+        bump(ROUTES, "library_lu")
+        return "xla"
+    return backend
 
 
 def _factor(K, backend, exact=False):
@@ -135,12 +155,15 @@ def _rot_factor_factory(operands, F, reg, factor_precision=None, refine=0,
     (G z | A z) and G^T lam + A^T nu over Ghat2; on blocked systems of at
     most two panels ``factor.iter_inv_raw(d_inv)`` is the padded explicit
     inverse (B, T*128, T*128) of S2, for the fused per-iteration kernel.
+    Past ``linalg.MAX_BLOCKED_N`` rows every backend factors with the
+    pivoted library LU (:func:`resolve_backend`).
     """
     P2, Ghat2, qinv = operands
     n = qinv.shape[-1]
     C_ = F.C
     mg, m = 3 * C_, 4 * C_
     K2 = P2.shape[-1]
+    backend = resolve_backend(backend, K2)
     v_, mu_v = F.valid, F.mu
     exact = factor_precision in ("highest", "float32")
     pivoted = backend == "xla"
@@ -259,6 +282,7 @@ def _gamma_factor_factory(operands, F, m, g_, reg, factor_precision=None,
     P, Ghat, qinv = operands
     B, n = qinv.shape
     K = P.shape[-1]
+    backend = resolve_backend(backend, K)
     mg = m - g_
     q = K - mg
     dt, dev = P.dtype, P.device
@@ -382,7 +406,7 @@ def make_kkt_factor(Q, q_diag, G, A, F, reg, backend="auto", gamma_rows=0,
 
         def factor_dense(d_inv):
             K = _assemble_kkt(Q, G, A, Fd, d_inv, reg)
-            fac = _factor(K, backend, exact)
+            fac = _factor(K, resolve_backend(backend, n + m + q), exact)
             apply = _dense_apply(K)
             # r1_zero accepted for interface parity: nothing to skip here
             return lambda rhs, trans=0, r1_zero=False: _solve_refined(
@@ -392,6 +416,7 @@ def make_kkt_factor(Q, q_diag, G, A, F, reg, backend="auto", gamma_rows=0,
 
     if gamma_rows == 0 or gamma_rows > m:
         Fd = F.dense() if cone else F
+        be = resolve_backend(backend, m + q)
         P, Ghat, qinv = ipm.unrot_operands(q_diag, G, A, 0)   # [G; A]
         eye_m = torch.eye(m, dtype=Q.dtype, device=Q.device)
 
@@ -399,7 +424,7 @@ def make_kkt_factor(Q, q_diag, G, A, F, reg, backend="auto", gamma_rows=0,
             S = -P
             S[:, :m, :m] += Fd - d_inv[..., None] * eye_m - reg * eye_m
             S[:, m:, m:].diagonal(dim1=1, dim2=2).sub_(reg)
-            fac = _factor(S, backend, exact)
+            fac = _factor(S, be, exact)
             apply = _dense_apply(S)
 
             def solve(rhs, trans=0, r1_zero=False):
@@ -440,7 +465,8 @@ def solve_eq_kkt(Q, p, A, b, reg=None, backend="auto"):
     the solver's regularization (the JAX package's ``solve_eq_kkt``; the
     reference's contact-free path).  Single-instance or batched; returns
     (z, nu).  The pivotless factor (kernels on a CUDA tensor), or the
-    pivoted library LU with ``backend='xla'``."""
+    pivoted library LU with ``backend='xla'`` or past
+    ``linalg.MAX_BLOCKED_N`` rows (:func:`resolve_backend`)."""
     _check_backend(backend)
     single = Q.dim() == 2
     if single:
@@ -454,7 +480,8 @@ def solve_eq_kkt(Q, p, A, b, reg=None, backend="auto"):
         torch.cat([Q + reg * torch.eye(n, **opts), A.transpose(1, 2)], -1),
         torch.cat([A, (-reg * torch.eye(q, **opts)).expand(B, q, q)], -1),
     ], -2)
-    sol = linalg.plu_solve(_factor(K, backend), torch.cat([-p, b], -1))
+    sol = linalg.plu_solve(_factor(K, resolve_backend(backend, n + q)),
+                           torch.cat([-p, b], -1))
     z, nu = sol[:, :n], sol[:, n:]
     if single:
         z, nu = z[0], nu[0]
@@ -746,7 +773,9 @@ def pdipm_solve(Q, p, G, h, A, b, F, *, max_iter=20, tol=1e-7,
     at s = h, lam = tiny.  ``backend``: ``'auto'``, ``'pallas'`` and
     ``'fused'`` run the port's kernels on CUDA tensors (their plain
     versions on CPU tensors) and the fused loops where they fit;
-    ``'xla'`` the pivoted library LU and the unfused loop.
+    ``'xla'`` the pivoted library LU and the unfused loop.  A factored
+    system past ``linalg.MAX_BLOCKED_N`` rows takes the library LU under
+    every backend, as in the JAX package (:func:`resolve_backend`).
     ``factor_precision='highest'`` (or ``'float32'``) sends the blocked
     factor's float32 panel inverses to the scalar Gauss-Jordan kernel.
     ``verbose`` prints one line per iteration (one host read each) and

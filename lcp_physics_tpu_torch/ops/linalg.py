@@ -27,11 +27,13 @@ with the JAX package's boundary:
 
 ``plu_factor`` / ``plu_solve`` route by size.  ``xla_factor`` is the
 row-pivoted library LU (``torch.linalg.lu_factor``), the JAX package's
-``backend='xla'``; the solver takes it only when the caller names that
-backend, and ``plu_solve`` solves with it as with the others.  Each kernel wrapper
-dispatches on the device of its tensors: on a CUDA tensor it launches the
-hand-written kernel (and raises if that fails); on a CPU tensor it runs
-the plain torch version of the same algorithm (the ``*_ref`` functions).
+``backend='xla'``; the solver takes it when the caller names that
+backend or, as the JAX package does, for a system past ``MAX_BLOCKED_N``
+rows (``lcp.pdipm.resolve_backend``), and ``plu_solve`` solves with it as
+with the others.  Each kernel wrapper dispatches on the device of its
+tensors: on a CUDA tensor it launches the hand-written kernel (and raises
+if that fails); on a CPU tensor it runs the plain torch version of the
+same algorithm (the ``*_ref`` functions).
 ``LAUNCHES`` counts the kernel launches, trans=1 substitutions apart.
 """
 from __future__ import annotations
@@ -526,8 +528,8 @@ class PivotedLU(NamedTuple):
 def xla_factor(K):
     """Row-pivoted LU of K (B, n, n) by the library (``torch.linalg.
     lu_factor``): the JAX package's ``backend='xla'``, which is XLA's LU
-    and not a TPU kernel.  Taken only when the caller names that
-    backend."""
+    and not a TPU kernel.  Taken when the caller names that backend, and
+    past ``MAX_BLOCKED_N`` rows (``lcp.pdipm.resolve_backend``)."""
     return PivotedLU(*torch.linalg.lu_factor(K))
 
 

@@ -81,7 +81,9 @@ class SimConfig:
       tensors (CUDA kernel on a GPU tensor, plain torch on a CPU tensor).
       ``"auto"``, ``"fused"`` and ``"pallas"`` all mean that; ``"xla"``
       is the unfused loop over the row-pivoted library LU
-      (``torch.linalg.lu_factor``), taken only when asked for.
+      (``torch.linalg.lu_factor``).  As in the JAX package, a factored
+      system past ``ops.linalg.MAX_BLOCKED_N`` rows takes that library LU
+      under every backend (``lcp.pdipm.resolve_backend``).
     * ``solver_factor_precision='highest'`` (or ``'float32'``) does what it
       does in the JAX package: at float32 the blocked KKT factor inverts
       its panels with the exact scalar Gauss-Jordan kernel in place of the

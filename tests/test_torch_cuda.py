@@ -633,3 +633,13 @@ def test_two_shards_on_one_card(dev):
                                                            final_r.v)
     for g, r in zip(grads, grads_r):
         torch.testing.assert_close(g, r, rtol=1e-10, atol=1e-12)
+
+
+def test_guard_quick_on_the_card(dev):
+    """The f32 physics-quality guard's 8 checks with --quick's rollouts
+    (lcp_physics_tpu_torch.tools.validate_f32) on the card: every check
+    passes at the JAX tool's thresholds."""
+    from lcp_physics_tpu_torch.tools import validate_f32
+    records = validate_f32.run_checks(str(dev), quick=True)
+    assert len(records) == 8
+    assert not [f"{r['name']}: {r['detail']}" for r in records if not r["ok"]]

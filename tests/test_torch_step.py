@@ -164,19 +164,22 @@ def test_state_and_params_conversion():
 
 def test_import_leaves_jax_out():
     """The package, its object layer, sharding, entry analogs, demos,
-    native broadphase and checkpoints, and chip_smoke.py import neither
-    jax nor the JAX package."""
+    tools, native broadphase and checkpoints, and chip_smoke.py import
+    neither jax, nor the JAX package, nor the repository's tools/."""
     mods = ["lcp_physics_tpu_torch", "lcp_physics_tpu_torch.physics",
             "lcp_physics_tpu_torch.native",
             "lcp_physics_tpu_torch.parallel", "lcp_physics_tpu_torch.entry",
-            "lcp_physics_tpu_torch.utils.checkpoint", "chip_smoke"] + [
+            "lcp_physics_tpu_torch.utils.checkpoint",
+            "lcp_physics_tpu_torch.tools.validate_f32",
+            "lcp_physics_tpu_torch.tools.bigworld", "chip_smoke"] + [
         f"lcp_physics_tpu_torch.demos.{d}"
         for d in ("hello_world", "chain", "inference", "billiards",
                   "sharded_inference")]
     code = (f"import sys, {', '.join(mods)}; "
             "bad = [m for m in sys.modules if m == 'jax' or "
-            "m.startswith(('jax.', 'lcp_physics_tpu.')) or "
-            "m == 'lcp_physics_tpu']; print(bad); sys.exit(1 if bad else 0)")
+            "m.startswith(('jax.', 'lcp_physics_tpu.', 'tools.')) or "
+            "m in ('lcp_physics_tpu', 'tools')]; print(bad); "
+            "sys.exit(1 if bad else 0)")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     res = subprocess.run([sys.executable, "-c", code], cwd=root,
                          capture_output=True, text=True, timeout=120)
