@@ -121,11 +121,27 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    busy ms (profiler) per step, K4 launches and library-LU routings per
    step; the 12-panel path held to the plain versions at f64 (B = 2, one
    capped step, K5) and f32 (B = 32, by distribution).
-14. The card's name and power limit, a JSON line listing every kernel
+14. (b2) The port's bench (``lcp_physics_tpu_torch.tools.bench``):
+   every row of bench.py, the 4096-world scale-up included, at its widths
+   with one call a window (its lines printed; each rate finite and
+   positive; each row's kernels launched: K1/K2 and K3 for the headline
+   LCP batch, K4 for the dense, hull, joint and dense training rows, K3,
+   K1/K2 and the trans=1 substitution for the touching line; the joint
+   chain's K4 counted at three panels a factor), ``iter_bench`` with its
+   max_iter sweep (K6 with FUSE_ITER on) and ``roofline``; then the joint
+   chain, new on the card: one full-width float32 step (B = 256, K2 = 289)
+   through the kernels against the plain versions (capped at 3 IPM
+   iterations per world; uncapped by distribution, on inputs moved by one
+   ulp, against plain's spread under a second ulp), and
+   a float64 run (B = 2, 2 steps, K5) against the JAX record
+   ``tests/data/torch_joints_golden.json`` (regenerate with
+   ``PYTHONPATH=. python tests/test_torch_bench.py``).
+15. The card's name and power limit, a JSON line listing every kernel
    (``ms``, ``plain_ms``, ``library_ms`` — one PyTorch call computing the
    same function where there is one, timed here only —, ``bound_ms`` and
    ``bound_by`` from the call's bytes and operations at the card's
-   published peaks, launches on its path plus those of (v) and (g)),
+   published peaks, launches on its path plus those of (v), (g) and
+   (b2)),
    then the contract line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -902,10 +918,10 @@ def timed_train(torch, step, params, state, n_steps):
     return loss, grads, time.perf_counter() - t0
 
 
-def ulp(p0):
-    """p0 moved by about one float32 ulp (numpy, seed 1)."""
+def ulp(p0, seed=1):
+    """p0 moved by about one float32 ulp (numpy, ``seed``)."""
     return p0 * (1 + 2.0 ** -23
-                 * np.random.default_rng(1).standard_normal(p0.shape))
+                 * np.random.default_rng(seed).standard_normal(p0.shape))
 
 
 def all_finite(torch, loss, grads):
@@ -2391,6 +2407,177 @@ def phase_bigworld(torch, dev, smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# (b2) The port's bench and its measuring tools.
+# ---------------------------------------------------------------------------
+
+# the kernels each row of lcp_physics_tpu_torch.tools.bench must launch
+BENCH_PATHS = {"lcp": ("lu", "solve", "fused_ipm"),
+               "dense": ("gj_inv_blocked",), "hull": ("gj_inv_blocked",),
+               "hull_budget": ("gj_inv_blocked",),
+               "joints": ("gj_inv_blocked",),
+               "fwd_bwd_touching": ("fused_ipm", "lu", "solve", "solve_t"),
+               "fwd_bwd_dense": ("gj_inv_blocked",)}
+BENCH_CALLS = 1      # reduced reps: one call a window (three windows)
+JOINT_B = 256        # the joint chain held against plain at full width
+
+
+@contextlib.contextmanager
+def counted_factors(panels):
+    """Append the panel count of every blocked factorization to ``panels``
+    (the solver reaches ``plu_factor_blocks`` through the module)."""
+    from lcp_physics_tpu_torch.ops import linalg
+    orig = linalg.plu_factor_blocks
+
+    def counted(K, exact=False):
+        panels.append(-(-K.shape[-1] // linalg.PANEL))
+        return orig(K, exact)
+    linalg.plu_factor_blocks = counted
+    try:
+        yield
+    finally:
+        linalg.plu_factor_blocks = orig
+
+
+def phase_bench(torch, dev, smi):
+    """(b2) The port's bench (lcp_physics_tpu_torch.tools.bench): every row,
+    the scale-up included, at its widths with one call a window; its lines
+    printed, every rate finite and positive, each row's kernels launched
+    (the joint chain: K4 on three panels a factor, counted), the stdout
+    record built with bench.py's keys.  Then iter_bench with its max_iter
+    sweep (K6 launched with FUSE_ITER on, not off) and roofline.  Returns
+    the launch counts of the rows and the tools."""
+    from lcp_physics_tpu_torch.tools import bench, iter_bench, roofline
+    t0 = time.perf_counter()
+    reset_counts()
+    records = {}
+    for name in [*bench.ROWS, *bench.SCALE_ROWS]:
+        panels, before = [], launch_counts()
+        with counted_factors(panels):
+            rec = bench.run_row(name, str(dev), calls=BENCH_CALLS)
+        moved = {k: n - before[k] for k, n in launch_counts().items()}
+        print(f"  {rec['line']}\n  {bench.detail(rec)} ({smi})", flush=True)
+        check(np.isfinite(rec["rate"]) and rec["rate"] > 0,
+              f"(b2) {name}: rate {rec['rate']:,.1f} {rec['unit']}")
+        need = BENCH_PATHS.get(name, ())
+        check(all(rec["launches"].get(k, 0) > 0 for k in need),
+              f"(b2) {name} launched {need or 'no kernel it must'}: "
+              f"{rec['launches']} a call")
+        if name == "joints":
+            # a 128-panel's inverse is two 64-panel launches of K4
+            # (ops/linalg.py::_gj_inverse)
+            check(panels and set(panels) == {3}
+                  and moved["gj_inv_blocked"] == 2 * sum(panels),
+                  f"(b2) joints: {len(panels)} blocked factorizations, "
+                  f"each of {sorted(set(panels))} panels, "
+                  f"{moved['gj_inv_blocked']} K4 launches (2 a panel)")
+        records[name] = rec
+    out = bench.headline(records["lcp"]["rate"])
+    check(list(out) == ["metric", "value", "unit", "vs_baseline", "profile"]
+          and out["metric"] == "batched contact-LCP solves/sec/chip",
+          f"(b2) the bench's record: {json.dumps(out)}")
+
+    blocks, C_ = iter_bench.dense_lcp(device=dev)
+    comp = iter_bench.components(blocks, C_, dev, calls=5)
+    swept = iter_bench.sweep(blocks, C_, dev, calls=2)
+    for line in iter_bench.lines(comp, swept):
+        print(f"  {line}", flush=True)
+    times = [t["host_ms"] for t in comp.values() if isinstance(t, dict)] + [
+        t["host_ms"] for r in swept.values() for t in r["runs"].values()]
+    check(all(np.isfinite(t) and t > 0 for t in times),
+          f"(b2) iter_bench: {len(times)} times, all positive ({smi})")
+    check(all(t["launches"].get("ipm_iter", 0) > 0
+              for t in swept[True]["runs"].values())
+          and not any(t["launches"].get("ipm_iter", 0)
+                      for t in swept[False]["runs"].values()),
+          "(b2) iter_bench's sweep launched K6 with FUSE_ITER on, not off")
+    shape, rows, step = roofline.measure(device=dev, calls=5)
+    for line in roofline.lines(shape, rows, step):
+        print(f"  {line} ({smi})", flush=True)
+    check(all(np.isfinite(r[1]["host_ms"]) for r in rows)
+          and step["host_ms"] > 0, "(b2) roofline timed each component")
+    launches = launch_counts()
+    print(f"  (b2) bench and tools: {time.perf_counter() - t0:.1f} s; "
+          f"launches {launches}", flush=True)
+    return launches
+
+
+def hold_joints(torch, dev, smi):
+    """(b2) The joint chain, first on the card, one full-width float32 step
+    (B = JOINT_B, K2 = 289, three panels, K4) through the kernels against
+    the plain versions.  Its IPM stops on a merit where one ulp of input
+    moves v by ~1e-3 in most worlds (the stopping iteration moves), so:
+    capped at CAP_ITERS iterations (no stopping rule) every world within
+    1e-5; uncapped, per world on inputs moved by one ulp each, held by
+    distribution to plain's own spread under a second ulp.  Then the
+    float64 run (B = 2, 2 steps, K5) through the kernels against the JAX
+    record tests/data/torch_joints_golden.json at 1e-8."""
+    from lcp_physics_tpu_torch.core import WorldState
+    from lcp_physics_tpu_torch.parallel import make_batched_step
+    from lcp_physics_tpu_torch.tools import bench
+    from lcp_physics_tpu_torch.utils import SimConfig
+    t0 = time.perf_counter()
+    static, params, states = bench.build_joint_scene(JOINT_B, device=dev)
+    step = make_batched_step(static, SimConfig(**bench.WORLD_CONFIG))
+    capped = make_batched_step(static, SimConfig(
+        max_iter=CAP_ITERS, solver_eps=0.0, solver_stall_lim=0))
+    moved = [WorldState(torch.tensor(ulp(states.p.cpu().numpy(), seed),
+                                     dtype=states.p.dtype, device=dev),
+                        states.v, states.t) for seed in (1, 2)]
+    panels = []
+    with torch.no_grad():
+        reset_counts()
+        with counted_factors(panels):
+            s1, d1 = step(params, moved[0], bench.DT)
+        held = launch_counts()
+        c1, _ = capped(params, states, bench.DT)
+        with plain_kernels("the joint chain's comparison steps"):
+            s1_r, _ = step(params, moved[0], bench.DT)
+            s1_u, _ = step(params, moved[1], bench.DT)
+            c1_r, _ = capped(params, states, bench.DT)
+    check(held["gj_inv_blocked"] > 0 and set(panels) == {3}
+          and int(d1.n_contacts.min()) > 0,
+          f"(b2) joint chain, B={JOINT_B} f32, one step: K4 launched "
+          f"({held['gj_inv_blocked']}), {len(panels)} factorizations of 3 "
+          f"panels, {int(d1.n_contacts.min())} or more contacts a world")
+    e = world_rel(c1.v, c1_r.v)
+    check(float(e.max()) <= 1e-5,
+          f"(b2) joint chain one-step v kernel vs plain, f32, capped at "
+          f"{CAP_ITERS} IPM iterations: every world within "
+          f"{float(e.max()):.2e} (<= 1e-5), median {float(e.median()):.2e}")
+    e, e_u = (world_rel(s.v, s1_r.v) for s in (s1, s1_u))
+    check(float(e.median()) <= max(1e-5, 4 * float(e_u.median()))
+          and share(e, 1e-3) >= share(e_u, 1e-3) - 0.05,
+          f"(b2) joint chain one-step v kernel vs plain, f32, each world "
+          f"at p + 1 ulp: median world {float(e.median()):.2e}, within "
+          f"1e-3 on {share(e, 1e-3):.2%} (plain at a second ulp: median "
+          f"{float(e_u.median()):.2e}, within 1e-3 on {share(e_u, 1e-3):.2%})")
+
+    with open(os.path.join(ROOT, "tests", "data",
+                           "torch_joints_golden.json")) as f:
+        rec = json.load(f)
+    static, params, s = bench.build_joint_scene(
+        rec["B"], dtype=torch.float64, device=dev)
+    step = make_batched_step(static, SimConfig(**rec["config"]))
+    reset_counts()
+    counts = []
+    with torch.no_grad():
+        for _ in range(rec["steps"]):
+            s, d = step(params, s, bench.DT)
+            counts.append(d.n_contacts.cpu().tolist())
+    held = launch_counts()
+    check(held["gj_inv"] > 0 and counts == rec["n_contacts"],
+          f"(b2) f64 joint chain: K5 launched ({held['gj_inv']}), contacts "
+          f"{counts} as the record's")
+    for k in ("p", "v"):
+        err = float((getattr(s, k).cpu()
+                     - torch.tensor(rec[k], dtype=torch.float64)).abs().max())
+        check(err <= 1e-8, f"(b2) B={rec['B']} f64 joint chain through the "
+                           f"kernels vs JAX record {k}: {err:.2e} <= 1e-8")
+    print(f"  (b2) joint holds: {time.perf_counter() - t0:.1f} s ({smi})",
+          flush=True)
+
+
 def phase_turns(parent, smi):
     """The seven kernels of the checkout at ``parent`` and of this tree,
     device time, in turns parent, this, this, parent
@@ -2483,25 +2670,34 @@ def main():
     header("== (g) big single worlds")
     big = phase_bigworld(torch, dev, smi)
     print(f"guard launches {guard}; big-world launches {big}", flush=True)
+    header("== (b2) the port's bench, iter_bench and roofline")
+    t_b2 = time.perf_counter()
+    bench_launches = phase_bench(torch, dev, smi)
+    hold_joints(torch, dev, smi)
+    print(f"(b2) took {time.perf_counter() - t_b2:.1f} s", flush=True)
     header("== done")
 
     src = "lcp_physics_tpu_torch/csrc/"
-    # each kernel's launches: its path's run, plus the guard's and the big
-    # worlds' where they launch it
+    # each kernel's launches: its path's run, plus the guard's, the big
+    # worlds' and the bench's where they launch it
     rows = [("lu", src + "lu.cu", "lcp_physics_tpu/ops/linalg.py:113",
-             (launches, guard, big)),
+             (launches, guard, big, bench_launches)),
             ("solve", src + "lu.cu", "lcp_physics_tpu/ops/linalg.py:709",
-             (launches, guard, big)),
+             (launches, guard, big, bench_launches)),
             ("fused_ipm", src + "fused_ipm.cu",
-             "lcp_physics_tpu/ops/ipm.py:108", (launches, guard, big)),
+             "lcp_physics_tpu/ops/ipm.py:108",
+             (launches, guard, big, bench_launches)),
             ("fused_ipm_unrot", src + "fused_ipm.cu",
-             "lcp_physics_tpu/ops/ipm.py:108", (lcp_launches,)),
+             "lcp_physics_tpu/ops/ipm.py:108", (lcp_launches, bench_launches)),
             ("gj_inv_blocked", src + "gj_inv.cu",
-             "lcp_physics_tpu/ops/linalg.py:238", (train32, guard, big)),
+             "lcp_physics_tpu/ops/linalg.py:238",
+             (train32, guard, big, bench_launches)),
             ("gj_inv", src + "gj_inv.cu",
-             "lcp_physics_tpu/ops/linalg.py:150", (train64, big)),
+             "lcp_physics_tpu/ops/linalg.py:150",
+             (train64, big, bench_launches)),
             ("ipm_iter", src + "ipm_iter.cu",
-             "lcp_physics_tpu/ops/ipm_iter.py:102", (fuse_iter,))]
+             "lcp_physics_tpu/ops/ipm_iter.py:102",
+             (fuse_iter, bench_launches))]
     kernels = [dict(name=name, route="cuda", source=source, replaces=rep,
                     launches=sum(c[name] for c in counts), **stats[name])
                for name, source, rep, counts in rows]

@@ -643,3 +643,18 @@ def test_guard_quick_on_the_card(dev):
     records = validate_f32.run_checks(str(dev), quick=True)
     assert len(records) == 8
     assert not [f"{r['name']}: {r['detail']}" for r in records if not r["ok"]]
+
+
+def test_bench_rows_on_the_card(dev):
+    """The port's bench (lcp_physics_tpu_torch.tools.bench) on the card at
+    small B: the headline LCP row through K1/K2 and K3, the joint chain's
+    row through K4; each rate finite and positive, event times taken."""
+    from lcp_physics_tpu_torch.tools import bench
+    lcp = bench.run_row("lcp", str(dev), B=256, calls=2)
+    joints = bench.run_row("joints", str(dev), B=8, n_steps=2, calls=1)
+    for rec, need in ((lcp, ("lu", "solve", "fused_ipm")),
+                      (joints, ("gj_inv_blocked",))):
+        assert np.isfinite(rec["rate"]) and rec["rate"] > 0, rec["row"]
+        assert rec["event_ms"] is not None and rec["event_ms"] > 0
+        for k in need:
+            assert rec["launches"].get(k, 0) > 0, (rec["row"], k)

@@ -6,8 +6,10 @@ pinned in y ('y') and five free bodies dropped onto the chain.  Built with
 no contact capacity (c_max = 0, where both packages solve the
 equality-only KKT through ``lcp_solve``) and with contacts (c_max = 24),
 under the step options no other port test turns: the XLA and auto
-backends, per-world parameters in tiles, speculative contacts off and the
-contact-free fast path off.  Two steps each, agreement to 1e-12.
+backends, per-world parameters in tiles, speculative contacts off, the
+contact-free fast path off and the IPM's stall options
+(``solver_stall_lim=3, solver_stall_rtol=0.05``).  Two steps each,
+agreement to 1e-12.
 """
 import jax
 import jax.numpy as jnp
@@ -122,8 +124,9 @@ def test_no_contact_capacity_matches_jax(fast_free, monkeypatch):
     (dict(batch_tile=2), True),
     (dict(speculative=False), False),
     (dict(contact_free_fast_path=False), False),
+    (dict(solver_stall_lim=3, solver_stall_rtol=0.05), False),
 ], ids=["xla", "auto", "params_batched_tile2", "not_speculative",
-        "no_fast_path"])
+        "no_fast_path", "stall_rtol"])
 def test_jointed_contacts_match_jax(cfg, params_batched):
     diag = check(24, cfg, params_batched)
     assert int(diag.n_contacts.sum()) > 0     # the contact branch ran

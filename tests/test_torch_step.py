@@ -171,7 +171,10 @@ def test_import_leaves_jax_out():
             "lcp_physics_tpu_torch.parallel", "lcp_physics_tpu_torch.entry",
             "lcp_physics_tpu_torch.utils.checkpoint",
             "lcp_physics_tpu_torch.tools.validate_f32",
-            "lcp_physics_tpu_torch.tools.bigworld", "chip_smoke"] + [
+            "lcp_physics_tpu_torch.tools.bigworld",
+            "lcp_physics_tpu_torch.tools.bench",
+            "lcp_physics_tpu_torch.tools.iter_bench",
+            "lcp_physics_tpu_torch.tools.roofline", "chip_smoke"] + [
         f"lcp_physics_tpu_torch.demos.{d}"
         for d in ("hello_world", "chain", "inference", "billiards",
                   "sharded_inference")]
