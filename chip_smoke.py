@@ -76,7 +76,7 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 8. (h) The hull contact step: bench.py::build_world_scene(dense=True,
    hulls=True), built here with numpy from its seed (64 squares of side 2
    in a touching 8 x 8 grid, B = 256 identical worlds, c_max = 128,
-   SimConfig(max_iter=12, solver_eps=1e-5), float32, 16 steps), at
+   SimConfig(max_iter=12, solver_eps=1e-5), float32, 8 steps), at
    hull_pair_budget 0 and 256: ms/step on the host clock, device ms and
    events per step, host reads and launches per step (K4 must launch: the
    rotated K2 = 256 factor); budget 256 finds budget 0's contacts on the
@@ -136,12 +136,22 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    a float64 run (B = 2, 2 steps, K5) against the JAX record
    ``tests/data/torch_joints_golden.json`` (regenerate with
    ``PYTHONPATH=. python tests/test_torch_bench.py``).
-15. The card's name and power limit, a JSON line listing every kernel
+15. (bw) The dense training step's backward taken apart
+   (``lcp_physics_tpu_torch.tools.bwd_roofline`` and ``.asm_vjp_probe``
+   at full width: B = 256, 8 steps, float32): both tables printed, every
+   measured time finite and positive, K4 launched inside the LCP's
+   backward, each assembly pullback's top device kernels printed,
+   ``remat=True`` held to ``remat=False``; then ``_lcp_bwd_impl`` on the
+   first step's solution (each input moved by one ulp, so the tiled
+   worlds differ) through the kernels against the plain versions:
+   float64 (B = 32, K5) per world within 1e-8, float32 (B = 256, K4)
+   per world within max(1e-4, 4x plain's own spread at a second ulp).
+16. The card's name and power limit, a JSON line listing every kernel
    (``ms``, ``plain_ms``, ``library_ms`` — one PyTorch call computing the
    same function where there is one, timed here only —, ``bound_ms`` and
    ``bound_by`` from the call's bytes and operations at the card's
-   published peaks, launches on its path plus those of (v), (g) and
-   (b2)),
+   published peaks, launches on its path plus those of (v), (g), (b2)
+   and (bw)),
    then the contract line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -166,8 +176,10 @@ TRAIN_B64 = 32
 GJ_RES_RATIO = 4   # a panel kernel's ||K X - I|| against its plain version's
 LINE_B, LINE_STEPS = 64, 20
 ITER_B64 = 32   # K6 at float64: worlds of the dense scene
-HULL_B, HULL_STEPS, HULL_C = 256, 16, 128   # bench.py's dense hull grid
-STAB_B, STAB_STEPS = 64, 8
+# bench.py's dense hull grid; (h)'s depth cut from 16 steps to make room
+# for (bw)
+HULL_B, HULL_STEPS, HULL_C = 256, 8, 128
+STAB_B, STAB_STEPS = 64, 4   # (p)'s depth, cut from 8 for the same reason
 WORLD_STEPS, INFER_EPOCHS = 60, 3
 # The H100 SXM's published peaks (NVIDIA's data sheet; full 700 W power
 # limit): HBM3 bytes/s, and the highest FLOP/s for each item size without
@@ -1837,7 +1849,7 @@ def rollout_per_step(torch, what, step, params, state, steps, smi):
 
 
 def phase_hull(torch, dev, smi):
-    """(h) The hull grid (bench.py's dense hull scene, B = 256 f32, 16
+    """(h) The hull grid (bench.py's dense hull scene, B = 256 f32, 8
     steps) at hull_pair_budget 0 and 256: K4 launched (the rotated K2 = 256
     factor), the budget's contacts those of the full pair list on the
     first step, and the first step through the kernels against the plain
@@ -2578,6 +2590,137 @@ def hold_joints(torch, dev, smi):
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# (bw) The dense training step's backward taken apart.
+# ---------------------------------------------------------------------------
+
+BW_CALLS = (1, 3)    # calls a window: the 8-step rollouts; a step's parts
+BW_ASM_CALLS = 5     # calls a window of each assembly stage
+
+
+def bwd_inputs(torch, blocks, sol, seed):
+    """``_lcp_bwd_impl``'s inputs (z, s, lam, nu, Q, G, A, F) at the first
+    step's solution, every entry moved by about one float32 ulp (torch
+    generator, ``seed``), so that the worlds of the tiled scene differ."""
+    from lcp_physics_tpu_torch.lcp.cone import ConeF
+    gen = torch.Generator(sol.z.device).manual_seed(seed)
+
+    def mv(x):
+        return x * (1 + 2.0 ** -23 * torch.randn(
+            x.shape, generator=gen, device=x.device, dtype=x.dtype))
+    F = blocks["F"]
+    return (mv(sol.z), mv(sol.s), mv(sol.lam), mv(sol.nu), mv(blocks["Q"]),
+            mv(blocks["G"]), blocks["A"], ConeF(mv(F.mu), F.valid, F.fd))
+
+
+def bwd_world_rel(torch, got, ref):
+    """Per world, the largest ``world_rel`` over the backward's non-empty
+    cotangents (dQ, dp, dG, dh, dA, db, dF.mu)."""
+    return torch.stack([world_rel(a, r) for a, r in zip(got, ref)
+                        if r.numel()]).amax(0)
+
+
+def hold_lcp_bwd(torch, dev, dtype, B):
+    """``_lcp_bwd_impl`` on the dense scene's first-step solution (inputs
+    moved by one ulp each, ``bwd_inputs``) through the kernels and the
+    plain versions; plain at a second ulp beside them.  Returns the
+    per-world errors (kernel vs plain, plain vs plain at the second ulp)
+    and the launches of the kernel run."""
+    from lcp_physics_tpu_torch.lcp.lcp import _lcp_bwd_impl
+    from lcp_physics_tpu_torch.tools import bwd_roofline as br
+    static, params, states, config = br.dense_scene(B, dev, dtype)
+    blocks, sol = br.first_step_lcp(static, config, params, states)
+    g = torch.ones_like(sol.z)
+    kw = br.bwd_kw(static, config)
+    x1, x2 = (bwd_inputs(torch, blocks, sol, seed) for seed in (1, 2))
+    with torch.no_grad():
+        reset_counts()
+        got = _lcp_bwd_impl(*x1, g, **kw)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        with plain_kernels(f"(bw) the {dtype} backward's comparison runs"):
+            ref = _lcp_bwd_impl(*x1, g, **kw)
+            ref2 = _lcp_bwd_impl(*x2, g, **kw)
+    check(all(bool(torch.isfinite(x).all()) for x in got),
+          f"(bw) {dtype} backward through the kernels (B={B}) is finite")
+    return (bwd_world_rel(torch, got, ref), bwd_world_rel(torch, ref2, ref),
+            launches)
+
+
+def phase_bwd(torch, dev, smi):
+    """(bw) The backward of the dense training step (B = 256, 64 circles,
+    8 steps, float32; bench.py::bench_fwd_bwd_dense) taken apart by
+    lcp_physics_tpu_torch.tools.bwd_roofline and .asm_vjp_probe at full
+    width, their tables printed, every measured time finite and positive,
+    K4 launched inside lcp-bwd's refactor; remat=True held to
+    remat=False's loss and mass gradient; then _lcp_bwd_impl through the
+    kernels against the plain versions at the backward's own input: f64
+    (B = 32, K5) per world within 1e-8, f32 (B = 256, K4) per world
+    against plain's one-ulp spread.  Returns the launch counts of the
+    tools' run and of the kernel side of the holds."""
+    from lcp_physics_tpu_torch.tools import asm_vjp_probe
+    from lcp_physics_tpu_torch.tools import bwd_roofline as br
+    t0 = time.perf_counter()
+    reset_counts()
+    static, params, states, config = br.dense_scene(TRAIN_B, dev)
+    comp = br.components(static, config, params, states, dev, calls=BW_CALLS)
+    asm = asm_vjp_probe.components(static, config, params, states, dev,
+                                   calls=BW_ASM_CALLS)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    for line in br.lines(comp) + asm_vjp_probe.lines(asm):
+        print(f"  {line}", flush=True)
+    measured = [t for t in comp.values() if isinstance(t, dict)] + [
+        r[k] for r in asm.values() for k in ("fwd", "pull")]
+    derived = [t[0] for t in comp.values() if not isinstance(t, dict)]
+    check(all(np.isfinite(t["host_ms"]) and t["host_ms"] > 0
+              and np.isfinite(t["event_ms"]) and t["event_ms"] > 0
+              for t in measured) and np.isfinite(derived).all(),
+          f"(bw) {len(measured)} measured times finite and positive (host "
+          f"clock and events), {len(derived)} derived ones finite ({smi})")
+    # printed, not checked: a pass of the profiler over a short pullback
+    # has come back without device events once in a full run
+    named = sum(bool(r["top"]) for r in asm.values())
+    print(f"  (bw) the profiler named the top device kernels of {named} of "
+          f"{len(asm)} assembly pullbacks", flush=True)
+    k4 = {k: comp[k]["launches"].get("gj_inv_blocked", 0)
+          for k in ("lcp-bwd", "fwd+bwd", "fwd")}
+    check(k4["lcp-bwd"] > 0,
+          f"(bw) lcp-bwd's refactor launched K4: {k4['lcp-bwd']:g} launches "
+          f"a backward; the whole fwd+bwd {k4['fwd+bwd']:g}, fwd "
+          f"{k4['fwd']:g}")
+
+    (l0, g0), (l1, g1) = comp["rollout"]["out"], comp["remat"]["out"]
+    lf, gf = comp["fwd+bwd"]["out"]
+    rel = lambda a, r: float((a - r).abs().max() / r.abs().max())
+    e_self = max(rel(gf, g0), rel(lf, l0))
+    e = max(rel(g1, g0), rel(l1, l0))
+    check(e <= max(1e-4, 4 * e_self),
+          f"(bw) remat=True against remat=False (B={TRAIN_B}, f32, "
+          f"{br.N_STEPS} steps): loss and mass gradient within {e:.2e} of "
+          f"the largest entry (bench._fwd_bwd against rollout: {e_self:.2e};"
+          f" bar max(1e-4, 4x that))")
+
+    e, e_u, held = hold_lcp_bwd(torch, dev, torch.float64, TRAIN_B64)
+    launches = {k: n + held[k] for k, n in launches.items()}
+    check(held["gj_inv"] > 0 and float(e.max()) <= 1e-8,
+          f"(bw) f64 backward (B={TRAIN_B64}, K5: {held['gj_inv']} launches)"
+          f" kernel vs plain: every world within {float(e.max()):.2e} "
+          f"(<= 1e-8; plain at a second ulp {float(e_u.median()):.2e})")
+    e, e_u, held = hold_lcp_bwd(torch, dev, torch.float32, TRAIN_B)
+    launches = {k: n + held[k] for k, n in launches.items()}
+    lim = max(1e-4, 4 * float(e_u.max()))
+    check(held["gj_inv_blocked"] > 0 and float(e.max()) <= lim,
+          f"(bw) f32 backward (B={TRAIN_B}, K4: {held['gj_inv_blocked']} "
+          f"launches) kernel vs plain per world: max {float(e.max()):.2e}, "
+          f"median {float(e.median()):.2e} (<= {lim:.2e}: max(1e-4, 4x "
+          f"plain's own spread at a second ulp, max "
+          f"{float(e_u.max()):.2e}, median {float(e_u.median()):.2e}))")
+    print(f"  (bw) {time.perf_counter() - t0:.1f} s; launches {launches} "
+          f"({smi})", flush=True)
+    return launches
+
+
 def phase_turns(parent, smi):
     """The seven kernels of the checkout at ``parent`` and of this tree,
     device time, in turns parent, this, this, parent
@@ -2675,11 +2818,13 @@ def main():
     bench_launches = phase_bench(torch, dev, smi)
     hold_joints(torch, dev, smi)
     print(f"(b2) took {time.perf_counter() - t_b2:.1f} s", flush=True)
+    header("== (bw) the dense training step's backward taken apart")
+    bwd_launches = phase_bwd(torch, dev, smi)
     header("== done")
 
     src = "lcp_physics_tpu_torch/csrc/"
     # each kernel's launches: its path's run, plus the guard's, the big
-    # worlds' and the bench's where they launch it
+    # worlds', the bench's and the backward's where they launch it
     rows = [("lu", src + "lu.cu", "lcp_physics_tpu/ops/linalg.py:113",
              (launches, guard, big, bench_launches)),
             ("solve", src + "lu.cu", "lcp_physics_tpu/ops/linalg.py:709",
@@ -2691,10 +2836,10 @@ def main():
              "lcp_physics_tpu/ops/ipm.py:108", (lcp_launches, bench_launches)),
             ("gj_inv_blocked", src + "gj_inv.cu",
              "lcp_physics_tpu/ops/linalg.py:238",
-             (train32, guard, big, bench_launches)),
+             (train32, guard, big, bench_launches, bwd_launches)),
             ("gj_inv", src + "gj_inv.cu",
              "lcp_physics_tpu/ops/linalg.py:150",
-             (train64, big, bench_launches)),
+             (train64, big, bench_launches, bwd_launches)),
             ("ipm_iter", src + "ipm_iter.cu",
              "lcp_physics_tpu/ops/ipm_iter.py:102",
              (fuse_iter, bench_launches))]

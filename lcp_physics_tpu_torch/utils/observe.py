@@ -21,16 +21,22 @@ import time
 import torch
 
 
+def activities():
+    """The profiler activities :func:`trace` records: the host, and the
+    device when there is a card."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    return acts
+
+
 @contextlib.contextmanager
 def trace(logdir):
     """Profile everything inside the context; the trace (Chrome trace
     format, one file) is written into ``logdir`` on exit.  Yields the
     ``torch.profiler.profile`` object."""
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=activities()) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 

@@ -38,7 +38,9 @@ from test_torch_pdipm import one_torch_thread  # noqa: F401
 
 from lcp_physics_tpu_torch.lcp import lcp_solve
 from lcp_physics_tpu_torch.parallel import make_batched_step
+from lcp_physics_tpu_torch.tools import asm_vjp_probe as AV
 from lcp_physics_tpu_torch.tools import bench as TB
+from lcp_physics_tpu_torch.tools import bwd_roofline as BR
 from lcp_physics_tpu_torch.tools import iter_bench as IB
 from lcp_physics_tpu_torch.tools import roofline as RL
 from lcp_physics_tpu_torch.utils import SimConfig
@@ -346,8 +348,9 @@ def test_stdout_line_is_bench_pys(monkeypatch, capsys):
     assert "[bench] device cpu" in out.err
 
 
-@pytest.mark.parametrize("mod", [TB, IB, RL], ids=["bench", "iter_bench",
-                                                  "roofline"])
+@pytest.mark.parametrize("mod", [TB, IB, RL, BR, AV],
+                         ids=["bench", "iter_bench", "roofline",
+                              "bwd_roofline", "asm_vjp_probe"])
 def test_tools_raise_without_a_card(mod, monkeypatch):
     """Without a card and without --device cpu each tool raises."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -174,7 +174,10 @@ def test_import_leaves_jax_out():
             "lcp_physics_tpu_torch.tools.bigworld",
             "lcp_physics_tpu_torch.tools.bench",
             "lcp_physics_tpu_torch.tools.iter_bench",
-            "lcp_physics_tpu_torch.tools.roofline", "chip_smoke"] + [
+            "lcp_physics_tpu_torch.tools.roofline",
+            "lcp_physics_tpu_torch.tools.bwd_roofline",
+            "lcp_physics_tpu_torch.tools.asm_vjp_probe",
+            "lcp_physics_tpu_torch.tools.parity", "chip_smoke"] + [
         f"lcp_physics_tpu_torch.demos.{d}"
         for d in ("hello_world", "chain", "inference", "billiards",
                   "sharded_inference")]
