@@ -1,0 +1,49 @@
+"""The one generator of every traffic mix: worlds drawn per world from the
+seed, as a traffic file's ``scene`` describes them.
+
+The scene's ``kind`` names the draw of the bodies' centres,
+``scenes/<kind>.py`` (``grid``, ``scatter``); velocities are
+normal(0, ``vel_std``) per world and body (zero when ``vel_std`` is 0)
+and angles start at 0, whatever the kind.  All draws of a run come from one
+``numpy.random.default_rng(seed)`` in a fixed order (positions of every
+batch, then velocities, then any per-world guesses), so a seed gives the
+same worlds on every machine; any whole number is a seed.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from benchmark.harness import spec
+
+
+def worlds(scene, batches, B, N, rng):
+    """(p, v), each (batches, B, N, 3) float32, of ``scene``."""
+    shape = (batches, B, N)
+    pos = spec.plugin("scenes", scene["kind"]).positions(scene, shape, rng)
+    std = scene["vel_std"]
+    if std > 0:
+        v = rng.normal(0, std, shape + (3,)).astype(np.float32)
+    else:
+        v = np.zeros(shape + (3,), np.float32)
+    p = np.concatenate([np.zeros(shape + (1,)), pos], -1).astype(np.float32)
+    return p, v
+
+
+def guesses(ranges, B, N, rng):
+    """Per-world, per-body guesses {name: (B, N) float32} drawn
+    uniform(lo, hi) in the order of ``ranges``."""
+    return {k: rng.uniform(lo, hi, (B, N)).astype(np.float32)
+            for k, (lo, hi) in ranges.items()}
+
+
+def draw(traffic, config, seed):
+    """Everything the traffic mix draws for ``seed``: a dict with p, v
+    (batches, B, N, 3) and, for a mix with ``guess`` ranges, the guesses."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    out["p"], out["v"] = worlds(traffic["scene"], traffic["batches"],
+                                config["worlds"], config["bodies"], rng)
+    if "guess" in traffic:
+        out["guess"] = guesses(traffic["guess"], config["worlds"],
+                               config["bodies"], rng)
+    return out

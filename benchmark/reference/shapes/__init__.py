@@ -1,0 +1,5 @@
+"""The reference's body shapes, one module a shape, found by the name a
+configuration's ``shape`` gives (``world.shape``).  A module holds
+``params(config, dtype, device)``, the world's per-body parameters, and
+``contacts(world, p, v, dt)``, its narrowphase into the padded contact
+buffer that ``world.blocks`` assembles."""

@@ -1,0 +1,94 @@
+"""The generator's draws and the reference's assembly, held against the
+port's bench builders and ``make_assemble``."""
+import numpy as np
+import pytest
+import torch
+
+from benchmark.harness import generate, spec
+from benchmark.reference import world as ref_world
+from lcp_physics_tpu_torch.core import (WorldState, default_params,
+                                        make_assemble, make_scene_static)
+from lcp_physics_tpu_torch.tools import bench
+from lcp_physics_tpu_torch.utils import SimConfig
+
+BIG_SEED = 2 ** 31 + 12345
+
+
+@pytest.mark.parametrize("mix", ["pile-fwd", "loose-fwd", "lcp",
+                                 "pile-train"])
+def test_draws_repeat_for_a_seed_and_differ_across_worlds(mix):
+    traffic = spec.load_json(spec.HERE / "traffic" / f"{mix}.json")
+    conf = {"worlds": 8, "bodies": 64 if traffic["scene"]["kind"] == "grid"
+            else 8}
+    a = generate.draw(traffic, conf, BIG_SEED)
+    b = generate.draw(traffic, conf, BIG_SEED)
+    c = generate.draw(traffic, conf, BIG_SEED + 1)
+    assert np.array_equal(a["p"], b["p"]) and np.array_equal(a["v"], b["v"])
+    assert not np.array_equal(a["p"], c["p"])
+    p = a["p"].reshape(-1, conf["bodies"] * 3)
+    assert len({row.tobytes() for row in p}) == p.shape[0]
+    if "guess" in traffic:
+        for k, (lo, hi) in traffic["guess"].items():
+            g = a["guess"][k]
+            assert g.min() >= lo and g.max() <= hi
+            assert len({row.tobytes() for row in g}) == g.shape[0]
+
+
+@pytest.mark.parametrize("dense", [True, False])
+def test_grid_draws_equal_the_bench_world(dense):
+    """One world of the pile (loose grid) at the bench's seed 1 is the
+    bench's world bit for bit."""
+    mix = "pile-fwd" if dense else "loose-fwd"
+    traffic = dict(spec.load_json(spec.HERE / "traffic" / f"{mix}.json"),
+                   batches=1)
+    d = generate.draw(traffic, {"worlds": 1, "bodies": 64}, 1)
+    _, _, states = bench.build_world_scene(1, dense=dense, device="cpu")
+    assert np.array_equal(d["p"][0], states.p.numpy())
+    assert np.array_equal(d["v"][0], states.v.numpy())
+
+
+def test_scatter_draws_equal_the_bench_lcp_worlds():
+    traffic = dict(spec.load_json(spec.HERE / "traffic" / "lcp.json"),
+                   batches=1)
+    d = generate.draw(traffic, {"worlds": 64, "bodies": 8}, 0)
+    _, _, states = bench.build_lcp_scene(64, device="cpu")
+    assert np.array_equal(d["p"][0], states.p.numpy())
+    assert np.array_equal(d["v"][0], states.v.numpy())
+
+
+@pytest.mark.parametrize("conf_name,mix", [("grid64", "pile-fwd"),
+                                           ("circles8", "lcp")])
+def test_reference_assembly_equals_make_assemble(conf_name, mix):
+    """The reference's blocks are the port's (float64; the grid at 4 x 4
+    with 32 slots so that the deepest-contact compaction runs)."""
+    conf = spec.load_json(spec.HERE / "configs" / f"{conf_name}.json")
+    traffic = spec.load_json(spec.HERE / "traffic" / f"{mix}.json")
+    if conf_name == "grid64":
+        conf = dict(conf, bodies=16, c_max=32)
+        traffic = dict(traffic, scene=dict(traffic["scene"], rows=4, cols=4))
+    conf = dict(conf, worlds=5)
+    traffic = dict(traffic, batches=1)
+    d = generate.draw(traffic, conf, 77)
+    f64 = torch.float64
+    p = torch.as_tensor(d["p"][0], dtype=f64)
+    v = torch.as_tensor(d["v"][0], dtype=f64)
+    N, C = conf["bodies"], conf["c_max"]
+    static = make_scene_static([1] * N, c_max=C)
+    params = default_params(
+        static, verts=np.zeros((N, 1, 2)), radius=np.full(N, conf["radius"]),
+        gravity=tuple(conf["gravity"]), mass=conf["mass"],
+        restitution=conf["restitution"], fric_coeff=conf["fric_coeff"],
+        dtype=f64, device="cpu")
+    assemble, _ = make_assemble(static, SimConfig())
+    dt = conf["dt"]
+    port, _ = assemble(params, WorldState(p, v, torch.zeros(5, dtype=f64)),
+                       torch.full((5,), dt, dtype=f64))
+    world = {k: getattr(params, k) for k in ("mass", "inertia", "restitution",
+                                             "fric_coeff", "radius",
+                                             "gravity")}
+    ref = ref_world.blocks(dict(world, c_max=C, shape="circle"), p, v, dt)
+    assert int(ref["n_contacts"].sum()) > 0
+    for k in ("Q", "p", "G", "h", "row_mask"):
+        torch.testing.assert_close(ref[k], port[k], rtol=0, atol=1e-12)
+    torch.testing.assert_close(ref["F"], port["F"].dense(), rtol=0,
+                               atol=1e-12)
