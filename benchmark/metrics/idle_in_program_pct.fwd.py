@@ -1,0 +1,2 @@
+"""Share of device idle time inside the port's spans (%), world-step cells."""
+from benchmark.harness.spans import idle_in_program_pct as read  # noqa: F401

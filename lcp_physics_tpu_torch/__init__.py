@@ -8,7 +8,8 @@ module of the same path there and is held against it by the tests under
 wrapper runs its plain torch version instead.
 
 - ``utils``    — ``SimConfig``, ``Defaults``, 2D math helpers and
-  ``utils.observe`` (solver statistics, guards, timer, profiler trace).
+  ``utils.observe`` (solver statistics, guards, profiler trace and the
+  port's spans in it).
 - ``core``     — state, the circle and hull narrowphase, Jacobians, the
   batched and single-world steps (post-stabilization, the penetration
   backtrack) and rollout.

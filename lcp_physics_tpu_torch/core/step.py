@@ -18,6 +18,12 @@ JAX ``lax.while_loop`` by a Python loop of forward steps under
 ``torch.no_grad``, one host read per try (``"backtrack"``), then one
 differentiable step at the accepted per-world dt.
 
+Under a profiler the step is the span ``step`` (``utils.observe.span``)
+with its stages ``step.narrowphase``, ``step.assemble``,
+``step.integrate`` and ``step.penetration`` (``step.tile`` and
+``step.cat`` in the ``batch_tile`` loop), and each counted read the span
+``step.read.<key>``; the LCP inside it is the solver's ``solver``.
+
 The step is differentiable end to end: gradients pass through the
 narrowphase, the contact compaction (a gather) and the assembly as plain
 autograd, and through the LCP by ``lcp_solve``'s implicit backward.
@@ -43,7 +49,8 @@ from lcp_physics_tpu_torch.core.state import (SceneParams, SceneStatic,
 from lcp_physics_tpu_torch.lcp import lcp_solve
 from lcp_physics_tpu_torch.lcp.cone import ConeF
 from lcp_physics_tpu_torch.lcp.pdipm import _dtype_consts
-from lcp_physics_tpu_torch.utils import SimConfig, bump
+from lcp_physics_tpu_torch.utils import SimConfig, host_read
+from lcp_physics_tpu_torch.utils.observe import span
 
 # Host reads of the step's Python branches (module docstring).
 HOST_READS = {"contact_gate": 0, "penetration_gate": 0, "post_stab": 0,
@@ -290,12 +297,22 @@ def make_step_batched(static: SceneStatic, config: SimConfig = SimConfig(),
                   fric_pair=(config.fric_dirs == 2))
 
     def solve_with_contacts(params, states, eq, dt_w):
-        contacts, rmask = assemble.contacts(params, states, dt_w)
-        blocks = assemble.contact_blocks(params, states, contacts, eq,
-                                         rmask, dt_w)
+        with span("step.narrowphase"):
+            contacts, rmask = assemble.contacts(params, states, dt_w)
+        with span("step.assemble"):
+            blocks = assemble.contact_blocks(params, states, contacts, eq,
+                                             rmask, dt_w)
         v = lcp_solve(**blocks, **dyn_kw)
         ncon = (contacts.valid & (contacts.depth > 0)).sum(-1).to(torch.int32)
         return v, ncon, _max_depth(contacts)
+
+    def contact_free(params, states, dt_w):
+        """The contact-free fast path's gate: the AABB predicate False
+        proves the whole batch contact-free (host read, see module
+        docstring)."""
+        with span("step.narrowphase"):
+            return not _gate("contact_gate",
+                             assemble.any_overlap(params, states, dt_w))
 
     def step_tile_plain(params, states, dt):
         B = states.p.shape[0]
@@ -303,34 +320,38 @@ def make_step_batched(static: SceneStatic, config: SimConfig = SimConfig(),
         dt_w = torch.as_tensor(dt, dtype=dtype, device=dev).expand(B)
         zeros_i = torch.zeros(B, dtype=torch.int32, device=dev)
         zeros_f = torch.zeros(B, dtype=dtype, device=dev)
-        eq = assemble.eq(params, states, dt_w)
+        with span("step.assemble"):
+            eq = assemble.eq(params, states, dt_w)
         ncon, prepen = zeros_i, zeros_f
         if not C:
             # no contact capacity: the solver's equality-only KKT, with
             # its regularization and its implicit backward, as in JAX
             v_flat = lcp_solve(**assemble.empty_blocks(eq), **dyn_kw)
-        # Contact-free fast path: the AABB predicate False proves the
-        # whole batch contact-free (host read, see module docstring).
-        elif fast_free and not _gate(
-                "contact_gate", assemble.any_overlap(params, states, dt_w)):
-            v_flat = _equality_solve(eq["Q"], eq["p"], eq["A"], eq["b"])
+        elif fast_free and contact_free(params, states, dt_w):
+            with span("step.integrate"):
+                v_flat = _equality_solve(eq["Q"], eq["p"], eq["A"],
+                                         eq["b"])
         else:
             v_flat, ncon, prepen = solve_with_contacts(params, states, eq,
                                                        dt_w)
-        v_new = v_flat.reshape(B, N, 3)
-        p_new = states.p + dt_w[:, None, None] * v_new
-        if config.post_stabilization:
-            ps = assemble_ps(params, p_new)
-            p_new = p_new + _solve_or_free(ps, solver_kw,
-                                           fast_free).reshape(B, N, 3)
+        with span("step.integrate"):
+            v_new = v_flat.reshape(B, N, 3)
+            p_new = states.p + dt_w[:, None, None] * v_new
+            if config.post_stabilization:
+                ps = assemble_ps(params, p_new)
+                p_new = p_new + _solve_or_free(ps, solver_kw,
+                                               fast_free).reshape(B, N, 3)
         new_states = WorldState(p=p_new, v=v_new, t=states.t + dt_w)
         sg_pnew = p_new.detach()
-        if C and (not fast_free or _gate("penetration_gate", any_aabb_overlap(
-                sg_pnew, params.verts, params.radius, counts, pairs))):
-            post = max_penetration(sg_pnew, params.verts, params.radius,
-                                   counts, pairs)
-        else:
-            post = zeros_f
+        with span("step.penetration"):
+            if C and (not fast_free or _gate(
+                    "penetration_gate", any_aabb_overlap(
+                        sg_pnew, params.verts, params.radius, counts,
+                        pairs))):
+                post = max_penetration(sg_pnew, params.verts, params.radius,
+                                       counts, pairs)
+            else:
+                post = zeros_f
         return new_states, StepDiagnostics(ncon, post.detach(), prepen,
                                            zeros_i)
 
@@ -382,7 +403,7 @@ def make_step_batched(static: SceneStatic, config: SimConfig = SimConfig(),
                  if (config.penetration_backtrack and C) else
                  step_tile_plain)
 
-    def step_b(params, states, dt):
+    def step_tiles(params, states, dt):
         B = states.p.shape[0]
         if tile <= 0 or B <= tile:
             return step_tile(params, states, dt)
@@ -394,27 +415,32 @@ def make_step_batched(static: SceneStatic, config: SimConfig = SimConfig(),
         outs = []
         for t0 in range(0, B, tile):
             sl = slice(t0, t0 + tile)
-            s_t = WorldState(states.p[sl], states.v[sl], states.t[sl])
-            p_t = (SceneParams(**{
-                f: (getattr(params, f)[sl] if f != "force_params"
-                    else params.force_params)
-                for f in SceneParams.__dataclass_fields__})
-                if params_batched else params)
-            outs.append(step_tile(p_t, s_t, dt_b[sl]))
+            with span("step.tile"):
+                s_t = WorldState(states.p[sl], states.v[sl], states.t[sl])
+                p_t = (SceneParams(**{
+                    f: (getattr(params, f)[sl] if f != "force_params"
+                        else params.force_params)
+                    for f in SceneParams.__dataclass_fields__})
+                    if params_batched else params)
+                outs.append(step_tile(p_t, s_t, dt_b[sl]))
         cat = lambda xs: torch.cat(xs, dim=0)
-        new_states = WorldState(*(cat([getattr(o[0], f) for o in outs])
-                                  for f in ("p", "v", "t")))
-        diags = StepDiagnostics(*(cat([o[1][i] for o in outs])
-                                  for i in range(4)))
+        with span("step.cat"):
+            new_states = WorldState(*(cat([getattr(o[0], f) for o in outs])
+                                      for f in ("p", "v", "t")))
+            diags = StepDiagnostics(*(cat([o[1][i] for o in outs])
+                                      for i in range(4)))
         return new_states, diags
+
+    def step_b(params, states, dt):
+        with span("step"):
+            return step_tiles(params, states, dt)
 
     return step_b
 
 
 def _gate(name, flag):
     """One host read of a device flag (any world), counted."""
-    bump(HOST_READS, name)
-    return bool(flag.any())
+    return host_read(HOST_READS, name, "step", flag.any())
 
 
 def make_step(static: SceneStatic, config: SimConfig = SimConfig()):

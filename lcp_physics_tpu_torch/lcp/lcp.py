@@ -29,6 +29,7 @@ from lcp_physics_tpu_torch.lcp.pdipm import (PdipmSolution, _dtype_consts,
                                              _expand_batch, make_kkt_factor,
                                              pdipm_solve, solve_eq_kkt)
 from lcp_physics_tpu_torch.lcp.util import bger
+from lcp_physics_tpu_torch.utils.observe import span
 
 
 def _normalize(Q, p, G, h, A, b, F, q_is_diag=None):
@@ -151,7 +152,9 @@ class _LcpSolve(torch.autograd.Function):
     def backward(ctx, grad_z):
         z, s, lam, nu, Q, G, A, F_or_mu, valid = ctx.saved_tensors
         F = F_or_mu if valid is None else ConeF(F_or_mu, valid, ctx.fd)
-        grads = _lcp_bwd_impl(z, s, lam, nu, Q, G, A, F, grad_z, **ctx.bwd)
+        with span("solver.bwd"):
+            grads = _lcp_bwd_impl(z, s, lam, nu, Q, G, A, F, grad_z,
+                                  **ctx.bwd)
         # valid and row_mask are masks: zero cotangent (None)
         return grads + (None, None, None, None)
 

@@ -38,6 +38,12 @@ one flag per iteration back to stop once every world is done
 (``HOST_READS["ipm_loop"]`` counts those reads; ``verbose`` adds one more
 read per iteration, counted as ``HOST_READS["verbose"]``).  ``m == 0`` is
 the equality-only KKT solve ``solve_eq_kkt``.
+
+Under a profiler a solve is the span ``solver`` (``utils.observe.span``),
+with ``solver.start`` (the initial point), ``solver.fused`` (the fused
+whole-IPM kernel), ``solver.fused_iter`` (the per-iteration-fused loop)
+or one ``solver.iter`` a pass of the unfused loop, each counted read
+``solver.read.<key>``; ``lcp.lcp``'s backward is ``solver.bwd``.
 """
 from __future__ import annotations
 
@@ -48,7 +54,8 @@ import torch
 
 from lcp_physics_tpu_torch.lcp.cone import ConeF
 from lcp_physics_tpu_torch.ops import ipm, ipm_iter, linalg
-from lcp_physics_tpu_torch.utils import bump
+from lcp_physics_tpu_torch.utils import bump, host_read
+from lcp_physics_tpu_torch.utils.observe import span
 
 HOST_READS = {"ipm_loop": 0, "verbose": 0}
 # Factor sites whose system the size rule of resolve_backend sent to the
@@ -645,117 +652,117 @@ def unfused_loop(kkt_factor, pk, z, s, lam, nu, *, max_iter, tol, consts,
     iters = torch.full((B,), max_iter, dtype=torch.int32, device=dev)
     stall = torch.zeros(B, dtype=torch.int32, device=dev)
     for i in range(max_iter):
-        if i:
-            bump(HOST_READS, "ipm_loop")
-            if bool(done.all()):
-                break
-        merit, r = pk.merit(X)
-        _, s, lam, _ = pk.split(X)
-        mu = comp_mu(s, lam)
-        improved = merit < best_merit
-        bestX = torch.where(improved[:, None], X, bestX)
-        sig = (merit < best_merit * (1.0 - stall_rtol) if stall_rtol > 0
-               else improved)
-        best_merit = torch.minimum(merit, best_merit)
-        stall = torch.where(sig, 0, stall + 1)
-        if not_improved_lim > 0 and i >= not_improved_lim + 2:
-            stalled = stall >= not_improved_lim
-        else:
-            stalled = torch.zeros_like(done)
-        new_done = done | (merit < tol) | stalled
-        iters = torch.where(new_done & ~done, i, iters)
-        if verbose:   # the reference's residual dump: one host read
-            bump(HOST_READS, "verbose")
-            mu_max, r_max, d = torch.stack([
-                mu.amax(), pk.resid_norm(r).amax(),
-                new_done.sum().to(dt)]).tolist()
-            print(f"pdipm iter {i}: mu={mu_max:.3e} resid={r_max:.3e} "
-                  f"done={int(d)}/{B}", flush=True)
+        if i and host_read(HOST_READS, "ipm_loop", "solver", done.all()):
+            break
+        with span("solver.iter"):
+            merit, r = pk.merit(X)
+            _, s, lam, _ = pk.split(X)
+            mu = comp_mu(s, lam)
+            improved = merit < best_merit
+            bestX = torch.where(improved[:, None], X, bestX)
+            sig = (merit < best_merit * (1.0 - stall_rtol) if stall_rtol > 0
+                   else improved)
+            best_merit = torch.minimum(merit, best_merit)
+            stall = torch.where(sig, 0, stall + 1)
+            if not_improved_lim > 0 and i >= not_improved_lim + 2:
+                stalled = stall >= not_improved_lim
+            else:
+                stalled = torch.zeros_like(done)
+            new_done = done | (merit < tol) | stalled
+            iters = torch.where(new_done & ~done, i, iters)
+            if verbose:   # the reference's residual dump: one host read
+                mu_max, r_max, d = host_read(
+                    HOST_READS, "verbose", "solver", torch.stack([
+                        mu.amax(), pk.resid_norm(r).amax(),
+                        new_done.sum().to(dt)]))
+                print(f"pdipm iter {i}: mu={mu_max:.3e} resid={r_max:.3e} "
+                      f"done={int(d)}/{B}", flush=True)
 
-        lam_safe = torch.clamp(lam, min=tiny)
-        d_inv = torch.clamp(s / lam_safe, consts["dinv_min"],
-                            consts["dinv_max"])
-        kkt_solve = kkt_factor(d_inv)
+            lam_safe = torch.clamp(lam, min=tiny)
+            d_inv = torch.clamp(s / lam_safe, consts["dinv_min"],
+                                consts["dinv_max"])
+            kkt_solve = kkt_factor(d_inv)
 
-        # predictor: rhs = -r with the complementarity term on the rz rows
-        r4 = s * lam
-        rhs_aff = -r
-        rhs_aff[:, n:n + m] += r4 / lam_safe
-        if has_reduced:
-            wa_full, wk_a = kkt_solve.reduced(rhs_aff)
-            dlam_a = wa_full[:, :m]
-        else:
-            sol_a = kkt_solve(rhs_aff)
-            dlam_a = sol_a[:, n:n + m]
-        ds_a = -r4 / lam_safe - d_inv * dlam_a
-        dsl_a = torch.cat([ds_a, dlam_a], -1)
-        sl = X[:, sls]
-        alpha_a = _max_step(sl, dsl_a, mask2)
-        sl_aff = sl + alpha_a[:, None] * dsl_a
-        mu_aff = comp_mu(sl_aff[:, :m], sl_aff[:, m:])
-        sigma = torch.clamp(mu_aff / torch.clamp(mu, min=tiny), 0.0,
-                            1.0) ** 3
-
-        # corrector, solved as a delta on the predictor (r1 block zero)
-        r4c = r4 + ds_a * dlam_a - (sigma * mu)[:, None]
-        rhs_d = rz_rhs(r, (r4c - r4) / lam_safe)
-        if has_reduced:
-            wd_full, wk_d = kkt_solve.reduced(rhs_d, r1_zero=True)
-            w_full = wa_full + wd_full
-            dlam = w_full[:, :m]
-            ds = -r4c / lam_safe - d_inv * dlam
-            wk_tot = wk_a + wk_d
-            # with gondzio, z waits for the accepted correctors' wk
-            dz = (kkt_solve.z_from(rhs_aff[:, :n], wk_tot) if gondzio == 0
-                  else torch.zeros((B, n), dtype=dt, device=dev))
-            tail = w_full[:, m:]
-        else:
-            sol_c = sol_a + kkt_solve(rhs_d, r1_zero=True)
-            dlam = sol_c[:, n:n + m]
-            ds = -r4c / lam_safe - d_inv * dlam
-            dz, tail = sol_c[:, :n], sol_c[:, n + m:]
-        dX = torch.cat([dz, ds, dlam, tail], -1)
-        alpha_raw = _max_step(sl, dX[:, sls], mask2)
-
-        # Gondzio multiple centrality correctors: each reuses the factor
-        # for one more solve toward the box [0.1, 10] * sigma mu, accepted
-        # per world only where it buys step length
-        if gondzio > 0:
-            mu_t = (sigma * mu)[:, None]
-            for _ in range(gondzio):
-                a_hat = torch.clamp(alpha_raw + 0.08, max=1.0)[:, None]
-                sl_t = sl + a_hat * dX[:, sls]
-                v_t = sl_t[:, :m] * sl_t[:, m:]
-                r4g = v_t - torch.clamp(v_t, min=0.1 * mu_t, max=10.0 * mu_t)
-                r4g = torch.where(maskb, r4g, 0.0)
-                rhs_g = rz_rhs(r, r4g / lam_safe)
-                if has_reduced:
-                    wg_full, wk_g = kkt_solve.reduced(rhs_g, r1_zero=True)
-                    dlam_g = wg_full[:, :m]
-                    dz_g, tail_g = torch.zeros_like(dz), wg_full[:, m:]
-                else:
-                    sol_g = kkt_solve(rhs_g, r1_zero=True)
-                    dlam_g = sol_g[:, n:n + m]
-                    dz_g, tail_g = sol_g[:, :n], sol_g[:, n + m:]
-                ds_g = -r4g / lam_safe - d_inv * dlam_g
-                dX_c = dX + torch.cat([dz_g, ds_g, dlam_g, tail_g], -1)
-                alpha_c = _max_step(sl, dX_c[:, sls], mask2)
-                ok = alpha_c >= torch.clamp(alpha_raw + 0.008, max=1.0)
-                dX = torch.where(ok[:, None], dX_c, dX)
-                if has_reduced:
-                    wk_tot = wk_tot + torch.where(ok[:, None], wk_g, 0.0)
-                alpha_raw = torch.where(ok, alpha_c, alpha_raw)
+            # predictor: rhs = -r with the complementarity term on the rz rows
+            r4 = s * lam
+            rhs_aff = -r
+            rhs_aff[:, n:n + m] += r4 / lam_safe
             if has_reduced:
-                dX = torch.cat([kkt_solve.z_from(rhs_aff[:, :n], wk_tot),
-                                dX[:, n:]], -1)
-        alpha = 0.99 * alpha_raw
+                wa_full, wk_a = kkt_solve.reduced(rhs_aff)
+                dlam_a = wa_full[:, :m]
+            else:
+                sol_a = kkt_solve(rhs_aff)
+                dlam_a = sol_a[:, n:n + m]
+            ds_a = -r4 / lam_safe - d_inv * dlam_a
+            dsl_a = torch.cat([ds_a, dlam_a], -1)
+            sl = X[:, sls]
+            alpha_a = _max_step(sl, dsl_a, mask2)
+            sl_aff = sl + alpha_a[:, None] * dsl_a
+            mu_aff = comp_mu(sl_aff[:, :m], sl_aff[:, m:])
+            sigma = torch.clamp(mu_aff / torch.clamp(mu, min=tiny), 0.0,
+                                1.0) ** 3
 
-        X_n = torch.maximum(X + alpha[:, None] * dX, floor_row)
-        X_n = torch.where(pinm, X_n, pinv)
-        bad = ~torch.isfinite(X_n).all(-1)     # divergence guard
-        halt = new_done | bad
-        X = torch.where(halt[:, None], X, X_n)
-        done = done | halt
+            # corrector, solved as a delta on the predictor (r1 block zero)
+            r4c = r4 + ds_a * dlam_a - (sigma * mu)[:, None]
+            rhs_d = rz_rhs(r, (r4c - r4) / lam_safe)
+            if has_reduced:
+                wd_full, wk_d = kkt_solve.reduced(rhs_d, r1_zero=True)
+                w_full = wa_full + wd_full
+                dlam = w_full[:, :m]
+                ds = -r4c / lam_safe - d_inv * dlam
+                wk_tot = wk_a + wk_d
+                # with gondzio, z waits for the accepted correctors' wk
+                dz = (kkt_solve.z_from(rhs_aff[:, :n], wk_tot) if gondzio == 0
+                      else torch.zeros((B, n), dtype=dt, device=dev))
+                tail = w_full[:, m:]
+            else:
+                sol_c = sol_a + kkt_solve(rhs_d, r1_zero=True)
+                dlam = sol_c[:, n:n + m]
+                ds = -r4c / lam_safe - d_inv * dlam
+                dz, tail = sol_c[:, :n], sol_c[:, n + m:]
+            dX = torch.cat([dz, ds, dlam, tail], -1)
+            alpha_raw = _max_step(sl, dX[:, sls], mask2)
+
+            # Gondzio multiple centrality correctors: each reuses the factor
+            # for one more solve toward the box [0.1, 10] * sigma mu, accepted
+            # per world only where it buys step length
+            if gondzio > 0:
+                mu_t = (sigma * mu)[:, None]
+                for _ in range(gondzio):
+                    a_hat = torch.clamp(alpha_raw + 0.08, max=1.0)[:, None]
+                    sl_t = sl + a_hat * dX[:, sls]
+                    v_t = sl_t[:, :m] * sl_t[:, m:]
+                    r4g = v_t - torch.clamp(v_t, min=0.1 * mu_t,
+                                            max=10.0 * mu_t)
+                    r4g = torch.where(maskb, r4g, 0.0)
+                    rhs_g = rz_rhs(r, r4g / lam_safe)
+                    if has_reduced:
+                        wg_full, wk_g = kkt_solve.reduced(rhs_g, r1_zero=True)
+                        dlam_g = wg_full[:, :m]
+                        dz_g, tail_g = torch.zeros_like(dz), wg_full[:, m:]
+                    else:
+                        sol_g = kkt_solve(rhs_g, r1_zero=True)
+                        dlam_g = sol_g[:, n:n + m]
+                        dz_g, tail_g = sol_g[:, :n], sol_g[:, n + m:]
+                    ds_g = -r4g / lam_safe - d_inv * dlam_g
+                    dX_c = dX + torch.cat([dz_g, ds_g, dlam_g, tail_g], -1)
+                    alpha_c = _max_step(sl, dX_c[:, sls], mask2)
+                    ok = alpha_c >= torch.clamp(alpha_raw + 0.008, max=1.0)
+                    dX = torch.where(ok[:, None], dX_c, dX)
+                    if has_reduced:
+                        wk_tot = wk_tot + torch.where(ok[:, None], wk_g, 0.0)
+                    alpha_raw = torch.where(ok, alpha_c, alpha_raw)
+                if has_reduced:
+                    dX = torch.cat([kkt_solve.z_from(rhs_aff[:, :n], wk_tot),
+                                    dX[:, n:]], -1)
+            alpha = 0.99 * alpha_raw
+
+            X_n = torch.maximum(X + alpha[:, None] * dX, floor_row)
+            X_n = torch.where(pinm, X_n, pinv)
+            bad = ~torch.isfinite(X_n).all(-1)     # divergence guard
+            halt = new_done | bad
+            X = torch.where(halt[:, None], X, X_n)
+            done = done | halt
     return pk.solution(X, bestX, best_merit, iters)
 
 
@@ -781,79 +788,85 @@ def pdipm_solve(Q, p, G, h, A, b, F, *, max_iter=20, tol=1e-7,
     ``verbose`` prints one line per iteration (one host read each) and
     keeps the solve in the unfused loop.  Returns a
     :class:`PdipmSolution`."""
-    _check_backend(backend)
-    stall_rtol = float(stall_rtol)
-    if q_is_diag is None:
-        diag_form = tuple(Q.shape) == tuple(p.shape) or (
-            Q.dim() == 1 and p.dim() == 2 and Q.shape[0] == p.shape[-1])
-    else:
-        diag_form = bool(q_is_diag)
-    q_rank = 1 if diag_form else 2
-    cone = isinstance(F, ConeF)
-    if cone:
-        batched, (Q, p, G, h, A, b, mu_f, v_f) = _expand_batch(
-            (Q, p, G, h, A, b, F.mu, F.valid), (q_rank, 1, 2, 1, 2, 1, 1, 1))
-        F = ConeF(mu_f, v_f, F.fd)
-    else:
-        batched, (Q, p, G, h, A, b, F) = _expand_batch(
-            (Q, p, G, h, A, b, F), (q_rank, 1, 2, 1, 2, 1, 2))
-    B, n = p.shape
-    m, q = G.shape[-2], A.shape[-2]
-    dt, dev = Q.dtype, p.device
-    consts = _dtype_consts(dt)
-    if diag_form and q_diag is None:
-        q_diag = Q
-    if q_diag is not None:
-        q_diag = q_diag.expand(B, n)
+    with span("solver"):
+        _check_backend(backend)
+        stall_rtol = float(stall_rtol)
+        if q_is_diag is None:
+            diag_form = tuple(Q.shape) == tuple(p.shape) or (
+                Q.dim() == 1 and p.dim() == 2 and Q.shape[0] == p.shape[-1])
+        else:
+            diag_form = bool(q_is_diag)
+        q_rank = 1 if diag_form else 2
+        cone = isinstance(F, ConeF)
+        if cone:
+            batched, (Q, p, G, h, A, b, mu_f, v_f) = _expand_batch(
+                (Q, p, G, h, A, b, F.mu, F.valid),
+                (q_rank, 1, 2, 1, 2, 1, 1, 1))
+            F = ConeF(mu_f, v_f, F.fd)
+        else:
+            batched, (Q, p, G, h, A, b, F) = _expand_batch(
+                (Q, p, G, h, A, b, F), (q_rank, 1, 2, 1, 2, 1, 2))
+        B, n = p.shape
+        m, q = G.shape[-2], A.shape[-2]
+        dt, dev = Q.dtype, p.device
+        consts = _dtype_consts(dt)
+        if diag_form and q_diag is None:
+            q_diag = Q
+        if q_diag is not None:
+            q_diag = q_diag.expand(B, n)
 
-    def squeeze(sol):
-        return sol if batched else PdipmSolution(*(x[0] for x in sol))
+        def squeeze(sol):
+            return sol if batched else PdipmSolution(*(x[0] for x in sol))
 
-    if m == 0:
-        z, nu = solve_eq_kkt(torch.diag_embed(Q) if diag_form else Q, p, A,
-                             b, consts["reg"], backend)
-        zero_m = torch.zeros((B, 0), dtype=dt, device=dev)
-        zero_b = torch.zeros((B,), dtype=dt, device=dev)
-        return squeeze(PdipmSolution(
-            z, zero_m, zero_m, nu, zero_b, zero_b,
-            torch.zeros((B,), dtype=torch.int32, device=dev)))
+        if m == 0:
+            z, nu = solve_eq_kkt(torch.diag_embed(Q) if diag_form else Q, p, A,
+                                 b, consts["reg"], backend)
+            zero_m = torch.zeros((B, 0), dtype=dt, device=dev)
+            zero_b = torch.zeros((B,), dtype=dt, device=dev)
+            return squeeze(PdipmSolution(
+                z, zero_m, zero_m, nu, zero_b, zero_b,
+                torch.zeros((B,), dtype=torch.int32, device=dev)))
 
-    if row_mask is None:
-        row_mask = torch.ones((B, m), dtype=dt, device=dev)
-    row_mask = row_mask.expand(B, m).to(dt)
-    kkt_factor = make_kkt_factor(Q, q_diag, G, A, F, consts["reg"], backend,
-                                 gamma_rows if q_diag is not None else 0,
-                                 refine, factor_precision, fric_pair)
-    # the fused whole-IPM kernel: the JAX package's dispatch, with the
-    # rotated kernel preferred where the caller guarantees the +- pair,
-    # and only where a world fits the kernel's shared memory
-    fuse = fuse_rot = False
-    plain_mehrotra = refine == 0 and gondzio == 0 and not verbose
-    if (cone and q_diag is not None and gamma_rows == F.C and plain_mehrotra
-            and max_iter > 0 and backend != "xla"):
-        fits = lambda K: ipm.launch_fits(n, m, q, F.C, K, p.element_size())
-        fuse_rot = (bool(fric_pair) and ipm.fused_supported(
-            m - F.C, q, F.C, F.fd, fric_pair=True) and fits(2 * F.C + q))
-        fuse = fuse_rot or (ipm.fused_supported(m - F.C, q, F.C, F.fd)
-                            and fits(m - F.C + q))
-    z, s, lam, nu = _start(kkt_factor, p, h, b, row_mask, consts)
-    kw = dict(max_iter=max_iter, tol=tol, consts=consts,
-              not_improved_lim=not_improved_lim, stall_rtol=stall_rtol)
-    pk = lambda: _Packed(kkt_factor, Q, q_diag, G, A, p, h, b, F, row_mask)
-    iter_inv_raw = getattr(kkt_factor, "iter_inv_raw", None)
-    if fuse:
-        sol = PdipmSolution(*ipm.fused_ipm(
-            kkt_factor.operands, p, h, b, F.mu, F.valid, row_mask, z, s,
-            lam, nu, C=F.C, fd=F.fd, fric_pair=fuse_rot, **kw))
-    elif (FUSE_ITER and plain_mehrotra and cone and max_iter > 0
-          and iter_inv_raw is not None
-          and ipm_iter.fused_iter_supported(F.C, q, n, p.element_size())):
-        X, bestX, best_merit, iters = ipm_iter.fused_iter_ipm(
-            kkt_factor.operands[1], kkt_factor.operands[2], p, h, b, F.mu,
-            F.valid, row_mask, torch.cat([z, s, lam, nu], -1), C=F.C,
-            inv_raw=iter_inv_raw, host_reads=HOST_READS, **kw)
-        sol = pk().solution(X, bestX, best_merit, iters)
-    else:
-        sol = unfused_loop(kkt_factor, pk(), z, s, lam, nu, gondzio=gondzio,
-                           verbose=verbose, **kw)
-    return squeeze(sol)
+        if row_mask is None:
+            row_mask = torch.ones((B, m), dtype=dt, device=dev)
+        row_mask = row_mask.expand(B, m).to(dt)
+        kkt_factor = make_kkt_factor(Q, q_diag, G, A, F, consts["reg"],
+                                     backend,
+                                     gamma_rows if q_diag is not None else 0,
+                                     refine, factor_precision, fric_pair)
+        # the fused whole-IPM kernel: the JAX package's dispatch, with the
+        # rotated kernel preferred where the caller guarantees the +- pair,
+        # and only where a world fits the kernel's shared memory
+        fuse = fuse_rot = False
+        plain_mehrotra = refine == 0 and gondzio == 0 and not verbose
+        if (cone and q_diag is not None and gamma_rows == F.C
+                and plain_mehrotra and max_iter > 0 and backend != "xla"):
+            fits = lambda K: ipm.launch_fits(n, m, q, F.C, K, p.element_size())
+            fuse_rot = (bool(fric_pair) and ipm.fused_supported(
+                m - F.C, q, F.C, F.fd, fric_pair=True) and fits(2 * F.C + q))
+            fuse = fuse_rot or (ipm.fused_supported(m - F.C, q, F.C, F.fd)
+                                and fits(m - F.C + q))
+        with span("solver.start"):
+            z, s, lam, nu = _start(kkt_factor, p, h, b, row_mask, consts)
+        kw = dict(max_iter=max_iter, tol=tol, consts=consts,
+                  not_improved_lim=not_improved_lim, stall_rtol=stall_rtol)
+        pk = lambda: _Packed(kkt_factor, Q, q_diag, G, A, p, h, b, F, row_mask)
+        iter_inv_raw = getattr(kkt_factor, "iter_inv_raw", None)
+        if fuse:
+            with span("solver.fused"):
+                sol = PdipmSolution(*ipm.fused_ipm(
+                    kkt_factor.operands, p, h, b, F.mu, F.valid, row_mask,
+                    z, s, lam, nu, C=F.C, fd=F.fd, fric_pair=fuse_rot, **kw))
+        elif (FUSE_ITER and plain_mehrotra and cone and max_iter > 0
+              and iter_inv_raw is not None
+              and ipm_iter.fused_iter_supported(F.C, q, n, p.element_size())):
+            with span("solver.fused_iter"):
+                X, bestX, best_merit, iters = ipm_iter.fused_iter_ipm(
+                    kkt_factor.operands[1], kkt_factor.operands[2], p, h, b,
+                    F.mu, F.valid, row_mask, torch.cat([z, s, lam, nu], -1),
+                    C=F.C, inv_raw=iter_inv_raw, host_reads=HOST_READS, **kw)
+            sol = pk().solution(X, bestX, best_merit, iters)
+        else:
+            sol = unfused_loop(kkt_factor, pk(), z, s, lam, nu,
+                               gondzio=gondzio, verbose=verbose, **kw)
+        return squeeze(sol)

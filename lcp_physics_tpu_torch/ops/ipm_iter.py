@@ -32,7 +32,7 @@ import torch
 from lcp_physics_tpu_torch.ops import _build
 from lcp_physics_tpu_torch.ops.ipm import SMEM_LIMIT
 from lcp_physics_tpu_torch.ops.linalg import MAX_LANE_N, PANEL, _ru
-from lcp_physics_tpu_torch.utils import bump
+from lcp_physics_tpu_torch.utils import bump, host_read
 
 MAX_ITER_K = 2 * PANEL
 LAUNCHES = {"ipm_iter": 0}
@@ -276,14 +276,13 @@ def _loop(step, Ghat, qinv, p, h, b, mu_v, valid, row_mask, X0, *, C,
           host_reads=None):
     B, n = p.shape
     m = h.shape[-1]
+    reads = {"ipm_loop": 0} if host_reads is None else host_reads
     X, bestX = X0, X0
     state = initial_state(B, max_iter, p.dtype, p.device)
     for i in range(max_iter):
-        if i:
-            if host_reads is not None:
-                bump(host_reads, "ipm_loop")
-            if bool((state[:, 1] > 0.5).all()):
-                break
+        if i and host_read(reads, "ipm_loop", "solver",
+                           (state[:, 1] > 0.5).all()):
+            break
         s, lam = X[:, n:n + m], X[:, n + m:n + 2 * m]
         d_inv = torch.clamp(s / torch.clamp(lam, min=consts["tiny"]),
                             consts["dinv_min"], consts["dinv_max"])

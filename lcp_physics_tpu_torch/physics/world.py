@@ -30,7 +30,7 @@ from lcp_physics_tpu_torch.physics.contacts import (DiffContactHandler,
                                                     OdeContactHandler)
 from lcp_physics_tpu_torch.physics.engines import Engine, PdipmEngine
 from lcp_physics_tpu_torch.physics.utils import Defaults, SimConfig
-from lcp_physics_tpu_torch.utils import bump
+from lcp_physics_tpu_torch.utils import host_read
 
 HOST_READS = {"world_step": 0}
 
@@ -226,10 +226,9 @@ class World:
                 ok = False
                 for _ in range(cfg.max_dt_halvings + 1):
                     new_state, diag = step_fn(params, state, dt_try)
-                    bump(HOST_READS, "world_step")
-                    post, pre = torch.stack(
-                        [diag.max_penetration, diag.pre_penetration]
-                    ).tolist()
+                    post, pre = host_read(
+                        HOST_READS, "world_step", "world", torch.stack(
+                            [diag.max_penetration, diag.pre_penetration]))
                     if best is None or post < best[0]:
                         best = (post, new_state, dt_try)
                     ok = post <= tol or post - pre <= tol

@@ -16,6 +16,8 @@ import threading
 import numpy as np
 import torch
 
+from lcp_physics_tpu_torch.utils.observe import span
+
 _COUNT_LOCK = threading.Lock()
 
 
@@ -25,6 +27,15 @@ def bump(counts, key, n=1):
     sharded step (``parallel``), where a bare ``+=`` can lose counts."""
     with _COUNT_LOCK:
         counts[key] += n
+
+
+def host_read(counts, key, layer, x):
+    """One counted host read: ``counts[key]`` bumped, then ``x.tolist()``
+    (a bool for a 0-d flag) read back inside the span
+    ``<layer>.read.<key>`` (``observe.span``)."""
+    bump(counts, key)
+    with span(f"{layer}.read.{key}"):
+        return x.tolist()
 
 
 class Indices:

@@ -4,21 +4,25 @@ Counterpart of ``lcp_physics_tpu/utils/observe.py``:
 
 * :func:`trace` — a ``torch.profiler`` context writing a trace of what
   runs inside it (host and, on a GPU, device activity) into ``logdir``;
+* :func:`span` — a named range of the port's own layers (``step``,
+  ``solver``, their stages and counted host reads) in the profiler's
+  trace, and nothing while no profiler records;
 * :func:`solver_stats` — per-world interior-point diagnostics (iterations,
   complementarity, KKT residual) from the blocks the step assembles; run
   it on demand, not in the gradient path;
 * :func:`finite_or_raise` / :func:`finite_mask` — NaN and divergence
-  guards for rollouts;
-* :class:`StepTimer` — a steps/s counter in the reference's ``print_time``
-  format.
+  guards for rollouts.
 """
 from __future__ import annotations
 
 import contextlib
 import os
-import time
 
 import torch
+import torch.autograd.profiler
+
+# What span() returns while no profiler records: one shared null context.
+_NULL = contextlib.nullcontext()
 
 
 def activities():
@@ -39,6 +43,18 @@ def trace(logdir):
     with torch.profiler.profile(activities=activities()) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+def span(name):
+    """A ``torch.profiler.record_function(name)`` range while a profiler
+    records, else the shared null context (an unguarded
+    ``record_function`` costs ~20x the check when nothing records).  The
+    ranges land in the profiler's own trace, on the clock of its device
+    events.  Names start with their layer: ``step``, ``step.<stage>``,
+    ``solver``, ``solver.<stage>``, ``<layer>.read.<key>``."""
+    if torch.autograd.profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NULL
 
 
 def solver_stats(static, config, params, state, dt=1e-2):
@@ -85,23 +101,3 @@ def finite_or_raise(state, context=""):
         raise FloatingPointError(
             f"non-finite world state detected {context}")
     return state
-
-
-class StepTimer:
-    """steps/sec + sim-time/wall-time ratio counter (the reference's
-    ``print_time`` readout, minus the carriage returns)."""
-
-    def __init__(self):
-        self.t0 = time.perf_counter()
-        self.steps = 0
-
-    def tick(self, n=1):
-        self.steps += n
-
-    def report(self, sim_time=None):
-        wall = time.perf_counter() - self.t0
-        out = f"{self.steps} steps in {wall:.3f}s " \
-              f"({self.steps / max(wall, 1e-9):,.1f} steps/s)"
-        if sim_time is not None:
-            out += f", sim/wall = {sim_time / max(wall, 1e-9):.2f}x"
-        return out

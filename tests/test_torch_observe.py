@@ -2,7 +2,7 @@
 ``solver_stats`` on the forward slice's circle scene (B = 4 worlds of 8
 circles, c_max = 8: the unrotated engine-layout LCP, K = 24, through the
 plain unrotated fused loop; the JAX package with lcp_backend="fused", its
-kernel in interpret mode), and the guards, the timer and the trace."""
+kernel in interpret mode), and the guards and the trace."""
 import json
 import os
 
@@ -67,12 +67,6 @@ def test_finite_guards_and_timer():
         observe.finite_or_raise(state, "after step 7")
     one = WorldState(p[0], p[0], torch.zeros((), **F64))
     assert bool(observe.finite_mask(one))
-    timer = observe.StepTimer()
-    timer.tick(5)
-    timer.tick()
-    rep = timer.report(sim_time=0.1)
-    assert rep.startswith("6 steps in ") and "steps/s" in rep
-    assert "sim/wall = " in rep
 
 
 def test_trace_writes_a_trace(tmp_path):
