@@ -124,9 +124,10 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 14. (b2) The port's bench (``lcp_physics_tpu_torch.tools.bench``):
    every row of bench.py, the 4096-world scale-up included, at its widths
    with one call a window (its lines printed; each rate finite and
-   positive; each row's kernels launched: K1/K2 and K3 for the headline
-   LCP batch, K4 for the dense, hull, joint and dense training rows, K3,
-   K1/K2 and the trans=1 substitution for the touching line; the joint
+   positive; each row's kernels launched: K3 for the headline LCP batch
+   (which takes its own start), K4 for the dense, hull, joint and dense
+   training rows, K3, K1 and the trans=1 substitution for the touching
+   line; the joint
    chain's K4 counted at three panels a factor), ``iter_bench`` with its
    max_iter sweep (K6 with FUSE_ITER on) and ``roofline``; then the joint
    chain, new on the card: one full-width float32 step (B = 256, K2 = 289)
@@ -858,8 +859,9 @@ def phase_slice(torch, dev, smi):
     final, traj, sec = timed_rollout(torch, step, params, state, STEPS)
     launches = launch_counts()
     print(f"slice launches over {STEPS} steps: {launches}", flush=True)
-    check(all(launches[k] > 0 for k in ("lu", "solve", "fused_ipm")),
-          "the rollout launched the lu, solve and fused_ipm kernels")
+    check(launches["fused_ipm"] > 0 and launches["solve"] == 0,
+          "the rollout launched the fused_ipm kernel, which takes its own "
+          "start (no trans=0 solve)")
     check(bool(torch.isfinite(traj.p).all() and torch.isfinite(traj.v).all()),
           "every state of the kernel rollout is finite")
     with plain_kernels("the f32 comparison rollouts"):
@@ -1514,7 +1516,7 @@ def phase_lcp(torch, dev, smi):
     launches = launch_counts()
     print(f"path (c) (i) launches, fwd+bwd: {launches}", flush=True)
     check(launches["fused_ipm_unrot"] > 0 and launches["fused_ipm"] == 0
-          and all(launches[k] > 0 for k in ("lu", "solve", "solve_t")),
+          and all(launches[k] > 0 for k in ("lu", "solve_t")),
           "path (c) (i): lcp_solve(fric_pair=False) launched K3u "
           "(fused_ipm_unrot, not the rotated K3) forward and K1/K2's "
           "trans=1 solve backward")
@@ -1699,8 +1701,7 @@ def hold_lcp_record(torch, dev):
               + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
               + f" (<= 1e-8); iterations {'equal' if same else 'differ'}")
     launches = launch_counts()
-    check(all(launches[k] > 0 for k in ("fused_ipm_unrot", "lu", "solve",
-                                        "solve_t")),
+    check(all(launches[k] > 0 for k in ("fused_ipm_unrot", "lu", "solve_t")),
           f"the record's solves launched K3u and K1/K2: {launches}")
 
 
@@ -1717,10 +1718,9 @@ def phase_line(torch, dev, smi):
     launches = launch_counts()
     print(f"line launches over {LINE_STEPS} steps, fwd+bwd: {launches}",
           flush=True)
-    check(all(launches[k] > 0 for k in ("lu", "solve", "solve_t",
-                                        "fused_ipm")),
-          "the line's fwd+bwd launched the lu, solve (trans 0 and 1) and "
-          "fused_ipm kernels")
+    check(all(launches[k] > 0 for k in ("lu", "solve_t", "fused_ipm")),
+          "the line's fwd+bwd launched the fused_ipm kernel forward and the "
+          "lu and trans=1 solve kernels backward")
     check(all_finite(torch, loss, grads), "line loss and gradients finite")
     with plain_kernels("the line's comparison runs"):
         loss_r, grads_r, sec_r = timed_train(torch, step, params, state,
@@ -2137,9 +2137,8 @@ def phase_shard(torch, dev, smi):
                   f"{STEPS} steps) equals the unsharded step at batch_tile ="
                   f" {B // k} bit for bit (largest difference {diff:.3e}); "
                   f"{reads:.1f} host reads per step")
-            check(all(moved.get(n, 0) > 0 for n in ("lu", "solve",
-                                                    "fused_ipm")),
-                  f"(s1) {k} shard(s) launched K1, K2 and K3: {moved}")
+            check(moved.get("fused_ipm", 0) > 0,
+                  f"(s1) {k} shard(s) launched K3: {moved}")
             runs[f"{k} shard(s)"] = run
         # the same two shards stepped one after the other by this thread:
         # what the worker threads cost beyond the split itself
@@ -2424,11 +2423,11 @@ def phase_bigworld(torch, dev, smi):
 # ---------------------------------------------------------------------------
 
 # the kernels each row of lcp_physics_tpu_torch.tools.bench must launch
-BENCH_PATHS = {"lcp": ("lu", "solve", "fused_ipm"),
+BENCH_PATHS = {"lcp": ("fused_ipm",),
                "dense": ("gj_inv_blocked",), "hull": ("gj_inv_blocked",),
                "hull_budget": ("gj_inv_blocked",),
                "joints": ("gj_inv_blocked",),
-               "fwd_bwd_touching": ("fused_ipm", "lu", "solve", "solve_t"),
+               "fwd_bwd_touching": ("fused_ipm", "lu", "solve_t"),
                "fwd_bwd_dense": ("gj_inv_blocked",)}
 BENCH_CALLS = 1      # reduced reps: one call a window (three windows)
 JOINT_B = 256        # the joint chain held against plain at full width

@@ -13,8 +13,18 @@
 // Gauss-Jordan explicit inverse; each KKT solve one inverse matvec plus one
 // refinement step; predictor and corrector with ratio tests and row_mask
 // pinning; stall exit with the it >= lim + 2 guard, non-finite halt and
-// best-iterate return.  The wrapper (ops/ipm.py::fused_ipm) forms P =
-// Ghat Q^-1 Ghat^T and Ghat outside.  The TPU kernel's (K, K) structure
+// best-iterate return.  Without a given start (z0 null) the kernel takes
+// the solver's own (lcp/pdipm.py::_start) in a pass of the loop's body
+// before the first iteration, from the zero iterate, whose residuals are
+// the start's right-hand side (rx = p, r2 = h, ry = -b): d_inv = 1, no
+// predictor, and the corrector's KKT solve is the origin's Newton step;
+// then (s, lam) = (-lam, lam) shifted into the strict interior over the
+// real rows and the padded rows pinned.  The pass costs about half an
+// iteration and reads no shared memory beyond carve's.  (The same start as
+// code of its own before the loop, a second copy of the inverse, spilled
+// 200-500 bytes more a thread in every f32 bucket and made K3 ~30% slower:
+// PERF.md.)  The wrapper (ops/ipm.py::fused_ipm) forms P = Ghat Q^-1
+// Ghat^T and Ghat outside.  The TPU kernel's (K, K) structure
 // masks of the unrotated bands are index arithmetic here: row C(1+d)+i
 // meets column i and columns C(1+d2)+i.
 //
@@ -527,9 +537,38 @@ struct Ipm {
     return r < T(1) ? r : T(1);
   }
 
+  // The start from the origin's Newton step (z, lam, nu) = (dz, dlam,
+  // dnu): s = -lam, then s and lam each shifted by relu(1 - their least
+  // entry over the real rows) and the padded rows pinned at s = h, lam =
+  // tiny.  (The best iterate needs no copy: it is returned only after an
+  // iteration improved on it, which copies it.)
+  __device__ __forceinline__ void take_start() {
+    const T inf = T(INFINITY);
+    T ms = inf, ml = inf;
+    for (int r = ln; r < m; r += L)
+      if (S.rmask[r] > T(0)) {
+        ms = fmin(ms, -S.dlam[r]);
+        ml = fmin(ml, S.dlam[r]);
+      }
+    ms = reduce(ms, MinOp());
+    ml = reduce(ml, MinOp());
+    const T shift_s = nmax(T(1) - ms, T(0)), shift_l = nmax(T(1) - ml, T(0));
+    for (int j = ln; j < n; j += L) S.z[j] = S.dz[j];
+    for (int r = ln; r < m; r += L) {
+      const bool real = S.rmask[r] > T(0);
+      S.s[r] = real ? -S.dlam[r] + shift_s : S.h[r];
+      S.lam[r] = real ? S.dlam[r] + shift_l : a.tiny;
+    }
+    for (int k = ln; k < q; k += L) S.nu[k] = S.dnu[k];
+    sync();
+  }
+
   // live: the world is one of the batch's (a world past B in the ragged
   // last CTA runs frozen on a copy of world B - 1 and stores nothing).
-  __device__ __forceinline__ void run(size_t w, bool live) {
+  // own_start: the pass it = -1 takes the start (header) instead of an
+  // iteration; it is the same for every world of the launch, so the
+  // pass's branches are warp-uniform.
+  __device__ __forceinline__ void run(size_t w, bool live, bool own_start) {
     const T big = (sizeof(T) == 8 ? T(1.7976931348623157e308)
                                   : T(3.4028234663852886e38)) / T(8);
     T best_merit = big, stall = T(0);
@@ -537,12 +576,14 @@ struct Ipm {
     const int lim = a.not_improved_lim;
     T mu_c, resid;
     bool done = !live;
-    for (int it = 0; it < a.max_iter; ++it) {
+    for (int it = own_start ? -1 : 0; it < a.max_iter; ++it) {
+      const bool start = it < 0;
       // a done world is frozen; the warp goes on while either of its worlds
       // runs (an idle half costs no issue slot of its own)
-      if (__all_sync(0xffffffffu, done)) break;
+      if (!start && __all_sync(0xffffffffu, done)) break;
+      // at the start's zero iterate: rx = p, ry = -b, rz = -h
       measures(mu_c, resid);
-      if (!done) {
+      if (!start && !done) {
         const T merit = mu_c + resid;
         const bool improved = merit < best_merit;
         if (improved) {
@@ -565,13 +606,14 @@ struct Ipm {
 
       // ---- Schur assembly + in-place Gauss-Jordan inverse -------------
       for (int r = ln; r < m; r += L)
-        S.d_inv[r] = clip(S.s[r] / nmax(S.lam[r], a.tiny), a.dinv_min,
-                          a.dinv_max);
+        S.d_inv[r] = start ? T(1)
+                           : clip(S.s[r] / nmax(S.lam[r], a.tiny), a.dinv_min,
+                                  a.dinv_max);
       sync();
       assemble();
       invert();
 
-      // ---- predictor -------------------------------------------------
+      // ---- predictor (at the start's zero iterate r2 = h) -------------
       for (int j = ln; j < n; j += L) S.dz[j] = S.qinv[j] * -S.rx[j];
       for (int r = ln; r < m; r += L)
         S.r2[r] = -S.rz[r] + (S.s[r] * S.lam[r]) / nmax(S.lam[r], a.tiny);
@@ -579,28 +621,35 @@ struct Ipm {
       // Ghat (qinv r1), shared by both solves
       for (int k = ln; k < K; k += L) S.y1[k] = gh_row(k, S.dz);
       sync();
-      kkt_solve(nullptr, S.dlam_a, nullptr);
-      for (int r = ln; r < m; r += L)
-        S.ds_a[r] = -(S.s[r] * S.lam[r]) / nmax(S.lam[r], a.tiny)
-                    - S.d_inv[r] * S.dlam_a[r];
-      sync();
-      const T alpha_a = max_step(S.ds_a, S.dlam_a);
-      T part = T(0);
-      for (int r = ln; r < m; r += L)
-        if (S.rmask[r] > T(0))
-          part += (S.s[r] + alpha_a * S.ds_a[r]) * (S.lam[r] + alpha_a * S.dlam_a[r]);
-      const T mu_aff = reduce(part, SumOp()) / rcount;
-      const T sg = clip(mu_aff / nmax(mu_c, a.tiny), T(0), T(1));
-      const T sigma = sg * sg * sg;
+      if (!start) {
+        kkt_solve(nullptr, S.dlam_a, nullptr);
+        for (int r = ln; r < m; r += L)
+          S.ds_a[r] = -(S.s[r] * S.lam[r]) / nmax(S.lam[r], a.tiny)
+                      - S.d_inv[r] * S.dlam_a[r];
+        sync();
+        const T alpha_a = max_step(S.ds_a, S.dlam_a);
+        T part = T(0);
+        for (int r = ln; r < m; r += L)
+          if (S.rmask[r] > T(0))
+            part += (S.s[r] + alpha_a * S.ds_a[r]) * (S.lam[r] + alpha_a * S.dlam_a[r]);
+        const T mu_aff = reduce(part, SumOp()) / rcount;
+        const T sg = clip(mu_aff / nmax(mu_c, a.tiny), T(0), T(1));
+        const T sigma = sg * sg * sg;
 
-      // ---- corrector (r4c held in ds until the solve is done) ----------
-      for (int r = ln; r < m; r += L) {
-        const T r4c = S.s[r] * S.lam[r] + S.ds_a[r] * S.dlam_a[r] - sigma * mu_c;
-        S.ds[r] = r4c;
-        S.r2[r] = -S.rz[r] + r4c / nmax(S.lam[r], a.tiny);
+        // ---- corrector (r4c held in ds until the solve is done) --------
+        for (int r = ln; r < m; r += L) {
+          const T r4c = S.s[r] * S.lam[r] + S.ds_a[r] * S.dlam_a[r] - sigma * mu_c;
+          S.ds[r] = r4c;
+          S.r2[r] = -S.rz[r] + r4c / nmax(S.lam[r], a.tiny);
+        }
+        sync();
       }
-      sync();
+      // the corrector's solve, or the start's one Newton step
       kkt_solve(S.dz, S.dlam, S.dnu);
+      if (start) {
+        take_start();
+        continue;
+      }
       for (int r = ln; r < m; r += L)
         S.ds[r] = -S.ds[r] / nmax(S.lam[r], a.tiny) - S.d_inv[r] * S.dlam[r];
       sync();
@@ -689,20 +738,22 @@ __global__ void __launch_bounds__(CTA_THREADS, min_ctas(KB, sizeof(T)))
   T* vk[] = {S.lamk, S.y, S.y1, S.dmain, S.rhs2, S.x, S.wk};
   for (T* v : vk)  // zero past K: the inverse matvecs read all KB entries
     for (int k = ln; k < KB; k += L) v[k] = T(0);
+  // the given start, or the zero iterate the start's pass begins from
+  const bool own_start = a.z0 == nullptr;
   for (int j = ln; j < n; j += L) {
     S.qinv[j] = a.qinv[w * n + j];
     S.p[j] = a.p[w * n + j];
-    S.z[j] = S.bz[j] = a.z0[w * n + j];
+    S.z[j] = S.bz[j] = own_start ? T(0) : a.z0[w * n + j];
   }
   for (int r = ln; r < m; r += L) {
     S.h[r] = a.h[w * m + r];
     S.rmask[r] = a.rmask[w * m + r];
-    S.s[r] = S.bs[r] = a.s0[w * m + r];
-    S.lam[r] = S.blam[r] = a.lam0[w * m + r];
+    S.s[r] = S.bs[r] = own_start ? T(0) : a.s0[w * m + r];
+    S.lam[r] = S.blam[r] = own_start ? T(0) : a.lam0[w * m + r];
   }
   for (int k = ln; k < q; k += L) {
     S.b[k] = a.b[w * q + k];
-    S.nu[k] = S.bnu[k] = a.nu0[w * q + k];
+    S.nu[k] = S.bnu[k] = own_start ? T(0) : a.nu0[w * q + k];
   }
   for (int i = ln; i < C; i += L) {
     S.mu[i] = a.mu[w * C + i];
@@ -717,7 +768,7 @@ __global__ void __launch_bounds__(CTA_THREADS, min_ctas(KB, sizeof(T)))
   Ipm<T, ROT, KB> ipm{a, S, a.ghat_smem ? S.Gh : Ghg, gs, n, m, q, C, a.fd,
                       K, mg, ROT ? 2 * C : mg, ln, sqrt(T(2)),
                       cnt > T(1) ? cnt : T(1)};
-  ipm.run(w, live);
+  ipm.run(w, live, own_start);
 }
 
 template <typename T>

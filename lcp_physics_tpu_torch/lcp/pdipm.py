@@ -27,21 +27,25 @@ every backend (``resolve_backend``, counted in ``ROUTES``).  A positive
 systems of at most two panels the factor becomes the explicit
 inverse and each solve one matvec plus ``INV_REFINE + refine`` steps
 against the structured system; elsewhere ``refine`` steps against the
-assembled one.  After the initial Newton solve the iterations run in the
-fused whole-IPM kernel (``ops.ipm.fused_ipm``, rotated or unrotated) on
-the engine layout when K <= 48, refine and gondzio are 0 and the caller is
-not verbose; with ``FUSE_ITER`` set, at refine 0 and rotated 88 < K2 <=
-256, in the fused per-iteration kernel (``ops.ipm_iter.fused_iter_ipm``);
-otherwise in the packed unfused loop of the JAX package, with its Gondzio
-correctors and its per-iteration ``verbose`` line.  Both host loops read
+assembled one.  The fused whole-IPM kernel (``ops.ipm.fused_ipm``,
+rotated or unrotated) takes the engine layout when K <= 48, refine and
+gondzio are 0 and the caller is not verbose, and computes the starting
+iterate itself (the initial Newton solve from the origin, ``_start``).
+Otherwise ``_start`` takes it on the host, through the KKT factor, and the
+iterations run with ``FUSE_ITER`` set, at refine 0 and rotated 88 < K2 <=
+256, in the fused per-iteration kernel (``ops.ipm_iter.fused_iter_ipm``),
+else in the packed unfused loop of the JAX package, with its Gondzio
+correctors and its per-iteration ``verbose`` line.  ``STARTS`` counts
+where each solve's start was taken.  Both host loops read
 one flag per iteration back to stop once every world is done
 (``HOST_READS["ipm_loop"]`` counts those reads; ``verbose`` adds one more
 read per iteration, counted as ``HOST_READS["verbose"]``).  ``m == 0`` is
 the equality-only KKT solve ``solve_eq_kkt``.
 
 Under a profiler a solve is the span ``solver`` (``utils.observe.span``),
-with ``solver.start`` (the initial point), ``solver.fused`` (the fused
-whole-IPM kernel), ``solver.fused_iter`` (the per-iteration-fused loop)
+with ``solver.fused`` (the fused whole-IPM kernel, its start included), or
+``solver.start`` (the initial point on the host) and then
+``solver.fused_iter`` (the per-iteration-fused loop)
 or one ``solver.iter`` a pass of the unfused loop, each counted read
 ``solver.read.<key>``; ``lcp.lcp``'s backward is ``solver.bwd``.
 """
@@ -58,6 +62,10 @@ from lcp_physics_tpu_torch.utils import bump, host_read
 from lcp_physics_tpu_torch.utils.observe import span
 
 HOST_READS = {"ipm_loop": 0, "verbose": 0}
+# Where a solve's starting iterate was taken, one count a solve with m > 0:
+# inside the fused whole-IPM kernel, or on the host (``_start``) before the
+# per-iteration-fused or the unfused loop.
+STARTS = {"kernel": 0, "host": 0}
 # Factor sites whose system the size rule of resolve_backend sent to the
 # pivoted library LU (torch.linalg.lu_factor).
 ROUTES = {"library_lu": 0}
@@ -830,10 +838,6 @@ def pdipm_solve(Q, p, G, h, A, b, F, *, max_iter=20, tol=1e-7,
         if row_mask is None:
             row_mask = torch.ones((B, m), dtype=dt, device=dev)
         row_mask = row_mask.expand(B, m).to(dt)
-        kkt_factor = make_kkt_factor(Q, q_diag, G, A, F, consts["reg"],
-                                     backend,
-                                     gamma_rows if q_diag is not None else 0,
-                                     refine, factor_precision, fric_pair)
         # the fused whole-IPM kernel: the JAX package's dispatch, with the
         # rotated kernel preferred where the caller guarantees the +- pair,
         # and only where a world fits the kernel's shared memory
@@ -846,20 +850,31 @@ def pdipm_solve(Q, p, G, h, A, b, F, *, max_iter=20, tol=1e-7,
                 m - F.C, q, F.C, F.fd, fric_pair=True) and fits(2 * F.C + q))
             fuse = fuse_rot or (ipm.fused_supported(m - F.C, q, F.C, F.fd)
                                 and fits(m - F.C + q))
-        with span("solver.start"):
-            z, s, lam, nu = _start(kkt_factor, p, h, b, row_mask, consts)
         kw = dict(max_iter=max_iter, tol=tol, consts=consts,
                   not_improved_lim=not_improved_lim, stall_rtol=stall_rtol)
-        pk = lambda: _Packed(kkt_factor, Q, q_diag, G, A, p, h, b, F, row_mask)
-        iter_inv_raw = getattr(kkt_factor, "iter_inv_raw", None)
         if fuse:
+            # the kernel takes the start itself: no factor is built here
+            bump(STARTS, "kernel")
+            operands = (ipm.rot_operands if fuse_rot else ipm.unrot_operands)(
+                q_diag, G, A, F.C)
             with span("solver.fused"):
                 sol = PdipmSolution(*ipm.fused_ipm(
-                    kkt_factor.operands, p, h, b, F.mu, F.valid, row_mask,
-                    z, s, lam, nu, C=F.C, fd=F.fd, fric_pair=fuse_rot, **kw))
-        elif (FUSE_ITER and plain_mehrotra and cone and max_iter > 0
-              and iter_inv_raw is not None
-              and ipm_iter.fused_iter_supported(F.C, q, n, p.element_size())):
+                    operands, p, h, b, F.mu, F.valid, row_mask, C=F.C,
+                    fd=F.fd, fric_pair=fuse_rot, **kw))
+            return squeeze(sol)
+        kkt_factor = make_kkt_factor(Q, q_diag, G, A, F, consts["reg"],
+                                     backend,
+                                     gamma_rows if q_diag is not None else 0,
+                                     refine, factor_precision, fric_pair)
+        bump(STARTS, "host")
+        with span("solver.start"):
+            z, s, lam, nu = _start(kkt_factor, p, h, b, row_mask, consts)
+        pk = lambda: _Packed(kkt_factor, Q, q_diag, G, A, p, h, b, F, row_mask)
+        iter_inv_raw = getattr(kkt_factor, "iter_inv_raw", None)
+        if (FUSE_ITER and plain_mehrotra and cone and max_iter > 0
+                and iter_inv_raw is not None
+                and ipm_iter.fused_iter_supported(F.C, q, n,
+                                                  p.element_size())):
             with span("solver.fused_iter"):
                 X, bestX, best_merit, iters = ipm_iter.fused_iter_ipm(
                     kkt_factor.operands[1], kkt_factor.operands[2], p, h, b,

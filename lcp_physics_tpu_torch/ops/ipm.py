@@ -17,7 +17,9 @@ worlds per CTA (``launch_shape``).  Two variants, as in the JAX package:
 
 ``fused_ipm`` runs the loop on the operands (P = Ghat Q^-1 Ghat^T, Ghat,
 Q^-1) with the CUDA kernel on GPU tensors and the plain torch
-transcription of the same loop on CPU tensors.  ``fused_ipm_ref`` always
+transcription of the same loop on CPU tensors, from a given start or from
+the solver's own, which the kernel then takes before its first iteration
+(one more inverse and KKT solve, at d_inv = 1).  ``fused_ipm_ref`` always
 runs the plain version.  ``LAUNCHES`` counts kernel launches,
 ``"fused_ipm"`` the rotated variant and ``"fused_ipm_unrot"`` the
 unrotated one.
@@ -164,7 +166,10 @@ def _loop_ref(P, Ghat, qinv, p, h, b, mu_v, valid, row_mask, z, s, lam, nu,
               *, C, fd, rot, max_iter, tol, consts, not_improved_lim,
               stall_rtol):
     """Plain torch transcription of the kernel's loop, vectorized over B;
-    ``rot`` picks the variant."""
+    ``rot`` picks the variant.  With ``z`` None the loop takes its own
+    start, as the kernel does: one Newton step from the origin at d_inv = 1
+    through the loop's inverse, refined solve and KKT solve, then
+    ``lcp.pdipm._start``'s shift and pin."""
     B, n = p.shape
     q = b.shape[-1]
     mg = C * (1 + fd)
@@ -206,35 +211,11 @@ def _loop_ref(P, Ghat, qinv, p, h, b, mu_v, valid, row_mask, z, s, lam, nu,
                             float("inf"))
         return torch.clamp(ratio.amin(-1), max=1.0)
 
-    big = torch.finfo(dt).max / 8
-    best = [x.clone() for x in (z, s, lam, nu)]
-    best_merit = torch.full((B,), big, dtype=dt, device=dev)
-    done = torch.zeros(B, dtype=torch.bool, device=dev)
-    iters = torch.full((B,), max_iter, dtype=torch.int32, device=dev)
-    stall = torch.zeros(B, dtype=dt, device=dev)
-    for it in range(max_iter):
-        if bool(done.all()):   # every world frozen: nothing can change
-            break
-        rx, rz, ry, mu_c, resid = measures(z, s, lam, nu)
-        merit = mu_c + resid
-        improved = merit < best_merit
-        best = [torch.where(improved[:, None], x, bx)
-                for x, bx in zip((z, s, lam, nu), best)]
-        sig = (merit < best_merit * (1.0 - stall_rtol) if stall_rtol > 0
-               else improved)
-        best_merit = torch.minimum(merit, best_merit)
-        stall = torch.where(sig, 0.0, stall + 1.0)
-        if not_improved_lim > 0 and it >= not_improved_lim + 2:
-            stalled = stall >= not_improved_lim
-        else:
-            stalled = torch.zeros_like(done)
-        new_done = done | (merit < tol) | stalled
-        iters = torch.where(new_done & ~done, it, iters)
-
-        # Schur system and its Gauss-Jordan explicit inverse
-        lam_safe = torch.maximum(lam, tiny)
-        d_inv = torch.clamp(s / lam_safe, consts["dinv_min"],
-                            consts["dinv_max"])
+    def newton(d_inv, rx, ry):
+        """The Newton system of the scaling ``d_inv`` at the residuals
+        (rx, ry): its Gauss-Jordan explicit inverse, and (kkt_solve, z_of)
+        with kkt_solve(r2m) = (wk, dlam) for the rhs [-rx; r2m; -ry] and
+        z_of(wk) its z block."""
         if rot:
             rs = rot_schur(P, d_inv, mu_v, valid, C, reg)
             apply_S = lambda x: (
@@ -252,7 +233,6 @@ def _loop_ref(P, Ghat, qinv, p, h, b, mu_v, valid, row_mask, z, s, lam, nu,
         y1 = torch.einsum("bkn,bn->bk", Ghat, qinv * -rx)
 
         def kkt_solve(r2m):
-            """KKT solve for rhs [-rx; r2m; -ry]: (wk, dlam)."""
             tg = r2m[:, mg:]
             tD = rs.Dginv * tg
             if not rot:
@@ -278,6 +258,54 @@ def _loop_ref(P, Ghat, qinv, p, h, b, mu_v, valid, row_mask, z, s, lam, nu,
                               wg], -1)
             return wk, dlam
 
+        def z_of(wk):
+            return qinv * (-rx - torch.einsum("bkn,bk->bn", Ghat, wk))
+
+        return kkt_solve, z_of
+
+    if z is None:
+        # the start: the rhs [-p; h; b] at d_inv = 1, then shift and pin
+        kkt_solve, z_of = newton(torch.ones_like(h), p, -b)
+        wk, lam = kkt_solve(h)
+        z, nu = z_of(wk), wk[:, kq:]
+
+        def shift(x):
+            least = torch.where(rmask, x, float("inf")).amin(-1)
+            return x + torch.relu(1.0 - least)[:, None]
+
+        s = torch.where(rmask, shift(-lam), h)
+        lam = torch.where(rmask, shift(lam), tiny)
+
+    big = torch.finfo(dt).max / 8
+    best = [x.clone() for x in (z, s, lam, nu)]
+    best_merit = torch.full((B,), big, dtype=dt, device=dev)
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    iters = torch.full((B,), max_iter, dtype=torch.int32, device=dev)
+    stall = torch.zeros(B, dtype=dt, device=dev)
+    for it in range(max_iter):
+        if bool(done.all()):   # every world frozen: nothing can change
+            break
+        rx, rz, ry, mu_c, resid = measures(z, s, lam, nu)
+        merit = mu_c + resid
+        improved = merit < best_merit
+        best = [torch.where(improved[:, None], x, bx)
+                for x, bx in zip((z, s, lam, nu), best)]
+        sig = (merit < best_merit * (1.0 - stall_rtol) if stall_rtol > 0
+               else improved)
+        best_merit = torch.minimum(merit, best_merit)
+        stall = torch.where(sig, 0.0, stall + 1.0)
+        if not_improved_lim > 0 and it >= not_improved_lim + 2:
+            stalled = stall >= not_improved_lim
+        else:
+            stalled = torch.zeros_like(done)
+        new_done = done | (merit < tol) | stalled
+        iters = torch.where(new_done & ~done, it, iters)
+
+        lam_safe = torch.maximum(lam, tiny)
+        d_inv = torch.clamp(s / lam_safe, consts["dinv_min"],
+                            consts["dinv_max"])
+        kkt_solve, z_of = newton(d_inv, rx, ry)
+
         # predictor
         r4 = s * lam
         _, dlam_a = kkt_solve(-rz + r4 / lam_safe)
@@ -291,7 +319,7 @@ def _loop_ref(P, Ghat, qinv, p, h, b, mu_v, valid, row_mask, z, s, lam, nu,
         # corrector
         r4c = s * lam + ds_a * dlam_a - (sigma * mu_c)[:, None]
         wk, dlam = kkt_solve(-rz + r4c / lam_safe)
-        dz = qinv * (-rx - torch.einsum("bkn,bk->bn", Ghat, wk))
+        dz = z_of(wk)
         dnu = wk[:, kq:]
         ds = -r4c / lam_safe - d_inv * dlam
         alpha = (0.99 * torch.minimum(max_step(s, ds),
@@ -382,7 +410,10 @@ def launch_shape(n, m, q, C, K, itemsize):
 def _loop_cuda(P, Ghat, qinv, p, h, b, mu_v, valid, row_mask, z0, s0, lam0,
                nu0, *, C, fd, rot, max_iter, tol, consts, not_improved_lim,
                stall_rtol):
-    ins = [P, Ghat, qinv, p, h, b, mu_v, valid, row_mask, z0, s0, lam0, nu0]
+    start = [z0, s0, lam0, nu0]
+    own = z0 is None                  # the kernel takes its own start
+    ins = [P, Ghat, qinv, p, h, b, mu_v, valid, row_mask] + (
+        [] if own else start)
     ins = [x.contiguous() for x in ins]
     dt, dev = p.dtype, p.device
     if dt not in (torch.float32, torch.float64):
@@ -393,7 +424,7 @@ def _loop_cuda(P, Ghat, qinv, p, h, b, mu_v, valid, row_mask, z0, s0, lam0,
     m, q = h.shape[-1], b.shape[-1]
     K = 2 * C + q if rot else C * (1 + fd) + q
     want = [(B, K, K), (B, K, n), (B, n), (B, n), (B, m), (B, q), (B, C),
-            (B, C), (B, m), (B, n), (B, m), (B, m), (B, q)]
+            (B, C), (B, m)] + ([] if own else [(B, n), (B, m), (B, m), (B, q)])
     if (m != C * (2 + fd) or (rot and fd != 2)
             or any(tuple(x.shape) != w for x, w in zip(ins, want))):
         raise ValueError(
@@ -408,8 +439,11 @@ def _loop_cuda(P, Ghat, qinv, p, h, b, mu_v, valid, row_mask, z0, s0, lam0,
     iters = torch.empty(B, dtype=torch.int32, device=dev)
     outs = [z, s, lam, nu, mu_c, resid, iters]
     f64 = dt == torch.float64
+    ptrs = [_build.ptr(x) for x in ins]
+    if own:                           # null start pointers
+        ptrs += [ctypes.c_void_p(None)] * 4
     rc = getattr(lib, "lcp_fused_ipm_" + ("f64" if f64 else "f32"))(
-        *[_build.ptr(x) for x in ins + outs], B, n, m, q, C, fd, int(rot),
+        *ptrs, *[_build.ptr(x) for x in outs], B, n, m, q, C, fd, int(rot),
         int(max_iter), float(tol), float(consts["tiny"]),
         float(consts["reg"]), float(consts["dinv_min"]),
         float(consts["dinv_max"]), int(not_improved_lim), float(stall_rtol),
@@ -419,26 +453,33 @@ def _loop_cuda(P, Ghat, qinv, p, h, b, mu_v, valid, row_mask, z0, s0, lam0,
     return z, s, lam, nu, mu_c, resid, iters
 
 
-def _fused(loop, operands, p, h, b, mu_v, valid, row_mask, z0, s0, lam0,
-           nu0, *, C, fd, max_iter, tol, consts, not_improved_lim=0,
-           fric_pair=False, stall_rtol=0.0):
-    return loop(*operands, p, h, b, mu_v, valid, row_mask, z0, s0, lam0,
-                nu0, C=C, fd=fd, rot=bool(fric_pair) and fd == 2,
-                max_iter=max_iter, tol=tol, consts=consts,
-                not_improved_lim=not_improved_lim, stall_rtol=stall_rtol)
+def _fused(loop, operands, p, h, b, mu_v, valid, row_mask, z0=None, s0=None,
+           lam0=None, nu0=None, *, C, fd, max_iter, tol, consts,
+           not_improved_lim=0, fric_pair=False, stall_rtol=0.0):
+    start = (z0, s0, lam0, nu0)
+    if any(x is None for x in start) and any(x is not None for x in start):
+        raise ValueError("fused IPM takes all of (z0, s0, lam0, nu0) or "
+                         "none of them")
+    return loop(*operands, p, h, b, mu_v, valid, row_mask, *start, C=C,
+                fd=fd, rot=bool(fric_pair) and fd == 2, max_iter=max_iter,
+                tol=tol, consts=consts, not_improved_lim=not_improved_lim,
+                stall_rtol=stall_rtol)
 
 
-def fused_ipm(operands, p, h, b, mu_v, valid, row_mask, z0, s0, lam0, nu0,
-              **kw):
-    """Run the fused IPM loop from (z0, s0, lam0, nu0).  ``operands`` is
-    ``rot_operands(q_diag, G, A, C)`` with ``fric_pair`` (and fd = 2),
-    ``unrot_operands(q_diag, G, A, C)`` otherwise; the other inputs in the
-    solver's (B, ...) layout.  The gamma rows of G must be zero and, with
-    ``fric_pair``, the two friction rows per contact exact negatives.
-    Keywords: C, fd, max_iter, tol, consts, not_improved_lim=0,
-    fric_pair=False, stall_rtol=0.0.  Returns (z, s, lam, nu, mu, resid,
-    iters) with iters int32.  The CUDA kernel on GPU tensors, the plain
-    version on CPU tensors."""
+def fused_ipm(operands, p, h, b, mu_v, valid, row_mask, z0=None, s0=None,
+              lam0=None, nu0=None, **kw):
+    """Run the fused IPM loop from (z0, s0, lam0, nu0) or, with none of
+    them given, from the solver's own start (``lcp.pdipm._start``: one
+    Newton step from the origin at d_inv = 1, shifted into the interior),
+    taken inside the loop.  ``operands`` is ``rot_operands(q_diag, G, A,
+    C)`` with ``fric_pair`` (and fd = 2), ``unrot_operands(q_diag, G, A,
+    C)`` otherwise; the other inputs in the solver's (B, ...) layout.  The
+    gamma rows of G must be zero and, with ``fric_pair``, the two friction
+    rows per contact exact negatives.  Keywords: C, fd, max_iter (0 returns
+    the start), tol, consts, not_improved_lim=0, fric_pair=False,
+    stall_rtol=0.0.  Returns (z, s, lam, nu, mu, resid, iters) with iters
+    int32.  The CUDA kernel on GPU tensors, the plain version on CPU
+    tensors."""
     return _fused(_loop_cuda if p.is_cuda else _loop_ref, operands, p, h, b,
                   mu_v, valid, row_mask, z0, s0, lam0, nu0, **kw)
 

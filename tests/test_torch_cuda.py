@@ -174,6 +174,69 @@ def world_err(g, r):
                   / r.abs().amax(-1).clamp_min(1e-300)).max())
 
 
+# (rot, C, q, fd) of the own-start tests: the paths' shapes (K = 16 rotated,
+# 24 unrotated), equality rows, K = 48 (the largest bucket) in both
+# variants, and unrotated fd = 1
+OWN_START = [(True, 8, 0, 2), (True, 8, 3, 2), (True, 24, 0, 2),
+             (False, 8, 0, 2), (False, 8, 1, 2), (False, 16, 0, 2),
+             (False, 16, 0, 1)]
+
+
+def own_start_case(dev, rot, C, q, fd, dtype):
+    """(fused_ipm's arguments without a start, base keywords, the host's
+    start ``initial_point``) on 130 engine instances: a ragged last CTA in
+    every bucket, padded rows (row_mask 0) in most worlds."""
+    args, base = fused_case(dev, rot, C, q, fd, 130, dtype, 5 * C + q + fd)
+    assert float(args[6].min()) == 0.0
+    return args[:7], base, args[7:]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("rot,C,q,fd", OWN_START)
+def test_fused_ipm_own_start_kernel_matches_plain(dev, rot, C, q, fd, dtype):
+    """K3 and K3u with no start given take the solver's start inside the
+    kernel; held against the plain loop taking its own start: runs capped
+    at 3 iterations per world (f64 1e-8, f32 1e-3), and at f64 a full run
+    with the same iterations on every world and z, s, lam, nu per world
+    within 1e-8."""
+    args, base, _ = own_start_case(dev, rot, C, q, fd, dtype)
+    f64 = dtype == torch.float64
+    runs = [(dict(max_iter=3, tol=0.0, not_improved_lim=0),
+             1e-8 if f64 else 1e-3)]
+    if f64:
+        runs.append((dict(max_iter=25, tol=1e-8, not_improved_lim=3), 1e-8))
+    name = "fused_ipm" if rot else "fused_ipm_unrot"
+    for kw, lim in runs:
+        before = dict(ipm.LAUNCHES, **linalg.LAUNCHES)
+        got = ipm.fused_ipm(*args, **base, **kw)
+        ref = ipm.fused_ipm_ref(*args, **base, **kw)
+        # one launch of the fused kernel and nothing else: no K1/K2 start
+        assert dict(ipm.LAUNCHES, **linalg.LAUNCHES) == dict(
+            before, **{name: before[name] + 1})
+        assert torch.equal(got[6], ref[6])
+        for g, r in zip(got[:4], ref[:4]):
+            if g.shape[-1]:
+                assert world_err(g, r) <= lim
+
+
+@pytest.mark.parametrize("rot,C,q,fd", OWN_START)
+def test_fused_ipm_own_start_is_initial_point(dev, rot, C, q, fd):
+    """With ``max_iter=0`` the kernel returns the start it takes: at f64
+    per world within 1e-10 of ``pdipm.initial_point`` (the host's start,
+    through K1/K2), the padded rows pinned exactly at s = h, lam = tiny,
+    and zero iterations."""
+    args, base, x0 = own_start_case(dev, rot, C, q, fd, torch.float64)
+    got = ipm.fused_ipm(*args, **base, max_iter=0, tol=1e-8,
+                        not_improved_lim=3)
+    for g, r in zip(got[:4], x0):
+        if g.shape[-1]:
+            assert world_err(g, r) <= 1e-10
+    h, pad = args[2], args[6] == 0
+    assert torch.equal(got[1][pad], h[pad])
+    assert bool((got[2][pad] == base["consts"]["tiny"]).all())
+    assert int(got[6].abs().max()) == 0
+
+
 # (rot, C, q, fd): K = 2C + q rotated, (1 + fd)C + q unrotated, at and just
 # past every bucket edge of the kernel (16, 24, 32, 48)
 BUCKET_EDGES = [(True, 8, 0, 2), (True, 8, 1, 2), (True, 12, 0, 2),
@@ -590,8 +653,9 @@ def test_two_shards_on_one_card(dev):
     steps): the states equal the unsharded step's at batch_tile = 32 bit
     for bit, the gradients of mean(p^2) within 1e-10 (the shared
     parameters' gradients sum both shards in the autograd engine's
-    order), and K1, K2 and K3 launched, the backward's trans=1
-    substitution too."""
+    order), K3 launched forward (taking its own start) and K1 with K2's
+    trans=1 substitution backward; K2's trans=0 substitution, which only
+    the host's start used, not at all."""
     import dataclasses
 
     from chip_smoke import C, N, slice_start
@@ -622,8 +686,9 @@ def test_two_shards_on_one_card(dev):
     final = gather([o[0] for o in outs], dev)
     grads = torch.autograd.grad((final.p ** 2).mean(), leaves)
     after = dict(linalg.LAUNCHES, **ipm.LAUNCHES)
-    for k in ("lu", "solve", "solve_t", "fused_ipm"):
+    for k in ("lu", "solve_t", "fused_ipm"):
         assert after[k] > before[k], k
+    assert after["solve"] == before["solve"]
 
     params_r, state_r, leaves_r = scene()
     tiled = make_batched_step(static, dataclasses.replace(cfg, batch_tile=32))
@@ -647,14 +712,16 @@ def test_guard_quick_on_the_card(dev):
 
 def test_bench_rows_on_the_card(dev):
     """The port's bench (lcp_physics_tpu_torch.tools.bench) on the card at
-    small B: the headline LCP row through K1/K2 and K3, the joint chain's
-    row through K4; each rate finite and positive, event times taken."""
+    small B: the headline LCP row through K3 alone (its start inside the
+    kernel: no K1/K2), the joint chain's row through K4; each rate finite
+    and positive, event times taken."""
     from lcp_physics_tpu_torch.tools import bench
     lcp = bench.run_row("lcp", str(dev), B=256, calls=2)
     joints = bench.run_row("joints", str(dev), B=8, n_steps=2, calls=1)
-    for rec, need in ((lcp, ("lu", "solve", "fused_ipm")),
+    for rec, need in ((lcp, ("fused_ipm",)),
                       (joints, ("gj_inv_blocked",))):
         assert np.isfinite(rec["rate"]) and rec["rate"] > 0, rec["row"]
         assert rec["event_ms"] is not None and rec["event_ms"] > 0
         for k in need:
             assert rec["launches"].get(k, 0) > 0, (rec["row"], k)
+    assert not {"lu", "solve"} & set(lcp["launches"])

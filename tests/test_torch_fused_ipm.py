@@ -82,6 +82,65 @@ def test_fused_loop_matches_jax_kernel_from_same_start():
     np.testing.assert_array_equal(got[6].numpy(), np.asarray(ref[6]))
 
 
+def own_start_case(rot, seed, B=6, n=9, C=4, q=3):
+    """An engine instance with padded rows, as JAX arrays, and the port's
+    fused_ipm arguments without a start (f64)."""
+    rng = np.random.default_rng(seed)
+    inst = engine_instance(rng, B, n, C, q=q, pair=rot)
+    tq, tp, tG, th, tA, tb, tF, trm = to_port(*inst)
+    ops = (ipm.rot_operands if rot else ipm.unrot_operands)(tq, tG, tA, C)
+    args = (ops, tp, th, tb, tF.mu, tF.valid, trm)
+    return inst, args, tF, dict(C=C, fd=2, fric_pair=rot,
+                                consts=pdipm._dtype_consts(torch.float64))
+
+
+@pytest.mark.parametrize("rot", [True, False])
+def test_fused_own_start_matches_jax_start_and_kernel(rot):
+    """``fused_ipm`` with no start given (the plain loop takes the
+    solver's start itself) against the JAX package's solve through its
+    fused kernel (its host start, then the Pallas kernel in interpret
+    mode), on runs capped at 4 iterations: per world within 1e-9."""
+    (qd, p, G, h, A, b, F, rmask), args, _, kw = own_start_case(rot, 61)
+    assert float(np.asarray(rmask).min()) == 0.0      # padded rows present
+    ref = jax_pdipm_solve(qd, p, G, h, A, b, F, backend="fused",
+                          row_mask=rmask, max_iter=4, tol=0.0,
+                          not_improved_lim=0, q_is_diag=True, gamma_rows=4,
+                          fric_pair=rot)
+    got = ipm.fused_ipm(*args, max_iter=4, tol=0.0, not_improved_lim=0,
+                        **kw)
+    for g, r in zip(got[:4], (ref.z, ref.s, ref.lam, ref.nu)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-9,
+                                   atol=1e-9)
+    np.testing.assert_array_equal(got[6].numpy(), 4)
+
+
+@pytest.mark.parametrize("rot", [True, False])
+def test_fused_own_start_is_the_initial_point(rot):
+    """With ``max_iter=0`` the loop returns its own start: within 1e-10 of
+    ``pdipm.initial_point`` (the host's LU factor) at f64, the padded rows
+    pinned exactly at s = h, lam = tiny."""
+    _, args, F, kw = own_start_case(rot, 67)
+    got = ipm.fused_ipm(*args, max_iter=0, tol=1e-8, not_improved_lim=3,
+                        **kw)
+    ops, p, h, b, _, _, rmask = args
+    want = pdipm.initial_point(ops, p, h, b, F, rmask, kw["consts"],
+                               fric_pair=rot)
+    for g, r in zip(got[:4], want):
+        torch.testing.assert_close(g, r, rtol=1e-10, atol=1e-10)
+    pad = rmask == 0
+    assert torch.equal(got[1][pad], h[pad])
+    assert bool((got[2][pad] == kw["consts"]["tiny"]).all())
+    assert bool((got[1][~pad] > 0).all() and (got[2][~pad] > 0).all())
+    assert got[6].tolist() == [0] * p.shape[0]
+
+
+def test_fused_start_is_all_or_nothing():
+    _, args, _, kw = own_start_case(True, 71)
+    z0 = torch.zeros_like(args[1])
+    with pytest.raises(ValueError, match="all of"):
+        ipm.fused_ipm(*args, z0, max_iter=1, tol=0.0, **kw)
+
+
 def test_lcp_solve_full_and_dispatch_rules():
     rng = np.random.default_rng(23)
     B, n, C = 4, 6, 3

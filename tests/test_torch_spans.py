@@ -65,6 +65,7 @@ def named(spans, name):
 def test_contact_step_nests_step_solver_and_iterations():
     step, params, states = grid(3, 2.01, 0.5)
     reads = pdipm.HOST_READS["ipm_loop"]
+    starts = dict(pdipm.STARTS)
     _, spans = traced(lambda: step(params, states, 0.01))
     loop_reads = pdipm.HOST_READS["ipm_loop"] - reads
     (outer,) = named(spans, "step")
@@ -76,6 +77,7 @@ def test_contact_step_nests_step_solver_and_iterations():
     assert len(named(spans, "solver.read.ipm_loop")) == loop_reads
     assert not named(spans, "solver.fused")
     assert len(named(spans, "solver.start")) == 1
+    assert pdipm.STARTS == dict(starts, host=starts["host"] + 1)
     for stage in ("step.narrowphase", "step.assemble", "step.integrate",
                   "step.penetration", "step.read.contact_gate",
                   "step.read.penetration_gate"):
@@ -87,11 +89,15 @@ def test_lcp_solve_of_eight_circles_opens_the_fused_span():
     args, kw, _ = lcp_problem(8, torch.float64, "cpu")
     p = args[1].clone().requires_grad_(True)
     args[1] = p
+    starts = dict(pdipm.STARTS)
     _, spans = traced(lambda: lcp_solve(*args, **kw).sum().backward())
     (solver,) = named(spans, "solver")
     (fused,) = named(spans, "solver.fused")
     (bwd,) = named(spans, "solver.bwd")
     assert inside(fused, solver) and bwd[1] >= solver[2]
+    # the fused kernel takes the start itself: no host start
+    assert not named(spans, "solver.start")
+    assert pdipm.STARTS == dict(starts, kernel=starts["kernel"] + 1)
     assert p.grad is not None
     assert not named(spans, "solver.iter")
     assert not named(spans, "step")

@@ -12,7 +12,10 @@ windows) on inputs made from fixed seeds at its path's shape: K1/K2
 (4096, 24, 24) f32 (path (c)), (256, 56, 56) f64 (``LCPFunction``'s
 dense KKT) and (4096, 88, 88) f32 and f64 (the largest lane size); K3 and K3u on 4096 engine-layout LCPs of
 the forward slice's size (n = 24, C = 8: K = 16 rotated, 24 unrotated)
-under its solver settings (max_iter 15, tol 1e-6, not_improved_lim 1), f32;
+under its solver settings (max_iter 15, tol 1e-6, not_improved_lim 1), f32,
+from the host's start (``initial_point``) and, as the solver runs them, from
+their own (keys ``*_own``; "none" for a tree whose kernels take no such
+start);
 K4 on (256, 64, 64) f32 panels; K5 on (32, 128, 128) f64 panels and on
 (256, 128, 128) f32 (``exact``, key ``gj_inv_f32``); K6 on the
 dense scene's first-step LCP (B = 256, f32).  The input generators are this
@@ -38,8 +41,8 @@ LU_SHAPES = (("", 4096, 16, False), ("_24", 4096, 24, False),
              ("_88_f64", 4096, 88, True))
 NAMES = tuple(k + sfx for sfx, *_ in LU_SHAPES
               for k in ("lu", "solve", "solve_t")) + (
-    "fused_ipm", "fused_ipm_unrot", "gj_inv_blocked", "gj_inv", "gj_inv_f32",
-    "ipm_iter")
+    "fused_ipm", "fused_ipm_unrot", "fused_ipm_own", "fused_ipm_unrot_own",
+    "gj_inv_blocked", "gj_inv", "gj_inv_f32", "ipm_iter")
 
 
 def smoke():
@@ -82,8 +85,17 @@ def measure(torch, cs, dev):
         kw = dict(C=8, fd=2, consts=consts, fric_pair=rot, max_iter=15,
                   tol=1e-6, not_improved_lim=1)
         args = (ops, p, h, b, mu, valid, rmask, *x0)
-        out["fused_ipm" if rot else "fused_ipm_unrot"] = cs.cuda_ms(
-            torch, lambda: ipm.fused_ipm(*args, **kw))
+        key = "fused_ipm" if rot else "fused_ipm_unrot"
+        out[key] = cs.cuda_ms(torch, lambda: ipm.fused_ipm(*args, **kw))
+        # the solver's path: the kernel taking its own start (a tree whose
+        # kernel takes only a given start has no such time)
+        try:
+            ipm.fused_ipm(*args[:7], **kw)
+        except TypeError:
+            out[key + "_own"] = None
+        else:
+            out[key + "_own"] = cs.cuda_ms(
+                torch, lambda: ipm.fused_ipm(*args[:7], **kw))
     P4 = torch.tensor(cs.kkt_batch(rng, 256, 64), dtype=f32, device=dev)
     out["gj_inv_blocked"] = cs.cuda_ms(torch, lambda: linalg.gj_inv_blocked(P4))
     P5 = torch.tensor(cs.kkt_batch(rng, 32, 128), dtype=f64, device=dev)
@@ -137,9 +149,10 @@ def main():
         times = {"parent": [], "this": []}
         for tag, root in order:
             times[tag].append(run_tree(os.path.abspath(root)))
+        ms = lambda t: "none" if t is None else f"{t:.4f}"
         for k in NAMES:
-            old = ", ".join(f"{t[k]:.4f}" for t in times["parent"])
-            new = ", ".join(f"{t[k]:.4f}" for t in times["this"])
+            old = ", ".join(ms(t.get(k)) for t in times["parent"])
+            new = ", ".join(ms(t.get(k)) for t in times["this"])
             print(f"{k}: parent {old} ms; this tree {new} ms (device time, "
                   f"in turns parent, this, this, parent; {card})", flush=True)
         print(json.dumps({"card": card, **times}), flush=True)
