@@ -4,22 +4,25 @@ import numpy as np
 import pytest
 import torch
 
-from benchmark.harness import generate, spec
+from benchmark.harness import generate, program, spec
 from benchmark.reference import world as ref_world
-from lcp_physics_tpu_torch.core import (WorldState, default_params,
-                                        make_assemble, make_scene_static)
+from benchmark.tests.helpers import configs, tiny_cell
+from lcp_physics_tpu_torch.core import WorldState, make_assemble
 from lcp_physics_tpu_torch.tools import bench
 from lcp_physics_tpu_torch.utils import SimConfig
 
 BIG_SEED = 2 ** 31 + 12345
 
 
-@pytest.mark.parametrize("mix", ["pile-fwd", "loose-fwd", "lcp",
-                                 "pile-train"])
+MIXES = sorted(p.stem for p in (spec.HERE / "traffic").glob("*.json"))
+
+
+@pytest.mark.parametrize("mix", MIXES)
 def test_draws_repeat_for_a_seed_and_differ_across_worlds(mix):
     traffic = spec.load_json(spec.HERE / "traffic" / f"{mix}.json")
-    conf = {"worlds": 8, "bodies": 64 if traffic["scene"]["kind"] == "grid"
-            else 8}
+    scene = traffic["scene"]
+    conf = {"worlds": 8, "bodies": scene["rows"] * scene["cols"]
+            if scene["kind"] == "grid" else 8}
     a = generate.draw(traffic, conf, BIG_SEED)
     b = generate.draw(traffic, conf, BIG_SEED)
     c = generate.draw(traffic, conf, BIG_SEED + 1)
@@ -56,37 +59,27 @@ def test_scatter_draws_equal_the_bench_lcp_worlds():
     assert np.array_equal(d["v"][0], states.v.numpy())
 
 
-@pytest.mark.parametrize("conf_name,mix", [("grid64", "pile-fwd"),
-                                           ("circles8", "lcp")])
-def test_reference_assembly_equals_make_assemble(conf_name, mix):
-    """The reference's blocks are the port's (float64; the grid at 4 x 4
-    with 32 slots so that the deepest-contact compaction runs)."""
-    conf = spec.load_json(spec.HERE / "configs" / f"{conf_name}.json")
-    traffic = spec.load_json(spec.HERE / "traffic" / f"{mix}.json")
-    if conf_name == "grid64":
-        conf = dict(conf, bodies=16, c_max=32)
-        traffic = dict(traffic, scene=dict(traffic["scene"], rows=4, cols=4))
-    conf = dict(conf, worlds=5)
-    traffic = dict(traffic, batches=1)
+@pytest.mark.parametrize("conf_name", list(configs()))
+def test_reference_assembly_equals_make_assemble(conf_name):
+    """The reference's blocks are the port's, at float64, for every
+    configuration with the mix of its first cell: the port's scene as its
+    shape builds it (``program.scene``), the reference's bodies from the
+    configuration (``ref_world.params``), at the configuration's tiny size
+    (the grid at 4 x 4 with 32 slots, so that the deepest-contact
+    compaction runs) and 5 worlds."""
+    c = tiny_cell(configs()[conf_name])
+    conf = dict(c.config, worlds=5, dtype="float64")
+    traffic = dict(c.traffic, batches=1)
     d = generate.draw(traffic, conf, 77)
     f64 = torch.float64
     p = torch.as_tensor(d["p"][0], dtype=f64)
     v = torch.as_tensor(d["v"][0], dtype=f64)
-    N, C = conf["bodies"], conf["c_max"]
-    static = make_scene_static([1] * N, c_max=C)
-    params = default_params(
-        static, verts=np.zeros((N, 1, 2)), radius=np.full(N, conf["radius"]),
-        gravity=tuple(conf["gravity"]), mass=conf["mass"],
-        restitution=conf["restitution"], fric_coeff=conf["fric_coeff"],
-        dtype=f64, device="cpu")
+    static, params = program.scene(conf, "cpu")
     assemble, _ = make_assemble(static, SimConfig())
     dt = conf["dt"]
     port, _ = assemble(params, WorldState(p, v, torch.zeros(5, dtype=f64)),
                        torch.full((5,), dt, dtype=f64))
-    world = {k: getattr(params, k) for k in ("mass", "inertia", "restitution",
-                                             "fric_coeff", "radius",
-                                             "gravity")}
-    ref = ref_world.blocks(dict(world, c_max=C, shape="circle"), p, v, dt)
+    ref = ref_world.blocks(ref_world.params(conf, f64, "cpu"), p, v, dt)
     assert int(ref["n_contacts"].sum()) > 0
     for k in ("Q", "p", "G", "h", "row_mask"):
         torch.testing.assert_close(ref[k], port[k], rtol=0, atol=1e-12)

@@ -1,17 +1,18 @@
-"""The plain reference against the port at float64: one step of the pile,
-the LCP solves of the solver cell, and the parameter-inference cell's
-loss and gradients.  At float64 both run the same algorithm, so they
-agree to rounding."""
+"""The plain reference against the port at float64, in every cell of a
+loop: steps of each ``step`` cell, the LCP solves of each ``lcp`` cell,
+and each ``train`` cell's loss and gradients.  At float64 both run the
+same algorithm, so they agree to rounding."""
 import dataclasses
 
 import numpy as np
+import pytest
 import torch
 
 from benchmark.harness import check, generate, program
 from benchmark.reference import lcp as ref_lcp
 from benchmark.reference import train as ref_train
 from benchmark.reference import world as ref_world
-from benchmark.tests.helpers import tiny_cell
+from benchmark.tests.helpers import cells, tiny_cell
 
 F64 = torch.float64
 
@@ -30,8 +31,9 @@ def _solver(conf):
     return check.solver(conf)
 
 
-def test_step_agrees_with_the_port():
-    c = _f64("grid64-pile-fwd")
+@pytest.mark.parametrize("cell", cells("step"))
+def test_step_agrees_with_the_port(cell):
+    c = _f64(cell)
     conf = c.config
     d = generate.draw(c.traffic, conf, 31)
     p = torch.as_tensor(d["p"][0], dtype=F64)
@@ -48,8 +50,9 @@ def test_step_agrees_with_the_port():
         s = out
 
 
-def test_lcp_solve_agrees_with_the_port():
-    c = _f64("circles8-lcp")
+@pytest.mark.parametrize("cell", cells("lcp"))
+def test_lcp_solve_agrees_with_the_port(cell):
+    c = _f64(cell)
     conf = c.config
     d = generate.draw(c.traffic, conf, 32)
     blk = ref_world.blocks(_world(conf), torch.as_tensor(d["p"][0], dtype=F64),
@@ -68,8 +71,9 @@ def test_lcp_solve_agrees_with_the_port():
     assert np.mean(iters.numpy() == sol.iters.numpy()) >= 0.9
 
 
-def test_inference_gradients_agree_with_the_port():
-    c = _f64("grid64-pile-train")
+@pytest.mark.parametrize("cell", cells("train"))
+def test_inference_gradients_agree_with_the_port(cell):
+    c = _f64(cell)
     conf, traffic = c.config, c.traffic
     d = generate.draw(traffic, conf, 33)
     p0 = torch.as_tensor(d["p"][0], dtype=F64)

@@ -14,10 +14,10 @@ import torch
 
 from benchmark import run as bench_run
 from benchmark.harness import check, program, spec
-from benchmark.tests.helpers import bench, tiny, tiny_cell
+from benchmark.tests.helpers import bench, cells, tiny, tiny_cell
 
 ROOT = spec.ROOT
-CELLS = [w["name"] for w in bench()["workloads"]]
+CELLS = cells()
 KEYS = ["correct", "attempted", "failed", "metrics", "device"]
 
 
@@ -43,7 +43,7 @@ def test_result_line_keys_and_a_sound_run_is_correct(cell):
     json.dumps(res)
 
 
-@pytest.mark.parametrize("cell", ["grid64-pile-fwd", "circles8-lcp"])
+@pytest.mark.parametrize("cell", CELLS)
 def test_traced_run_reports_only_per_layer_metrics(cell):
     res = _run(cell, trace=1)
     assert list(res) == KEYS + ["checks"]
@@ -116,20 +116,21 @@ STEP_FAULTS = {"state unchanged": _unchanged, "half the batch left out":
 
 
 @pytest.mark.parametrize("fault", list(STEP_FAULTS))
-@pytest.mark.parametrize("cell", ["grid64-pile-fwd", "grid64-loose-fwd"])
+@pytest.mark.parametrize("cell", cells("step"))
 def test_step_faults_fail(cell, fault, monkeypatch):
     monkeypatch.setattr(program, "batched_step", STEP_FAULTS[fault])
     assert _run(cell)["correct"] is False
 
 
-def test_lcp_fault_answers_altered(monkeypatch):
-    """The solver cell can have one of the faults: answers altered where
+@pytest.mark.parametrize("cell", cells("lcp"))
+def test_lcp_fault_answers_altered(cell, monkeypatch):
+    """A solver cell can have one of the faults: answers altered where
     they are produced (every z of a batch scaled by 1.01).  It has no
     state to leave unchanged and no mean over the batch."""
     real = program.lcp_solve
     monkeypatch.setattr(program, "lcp_solve",
                         lambda *a, **kw: real(*a, **kw) * 1.01)
-    assert _run("circles8-lcp")["correct"] is False
+    assert _run(cell)["correct"] is False
 
 
 def test_lcp_fault_in_a_part_of_the_batch(monkeypatch):
@@ -148,7 +149,8 @@ def test_lcp_fault_in_a_part_of_the_batch(monkeypatch):
     assert res["correct"] is False
 
 
-def test_train_fault_state_unchanged(monkeypatch):
+@pytest.mark.parametrize("cell", cells("train"))
+def test_train_fault_state_unchanged(cell, monkeypatch):
     """Adam's step runs but the guesses are put back: the state is
     returned unchanged."""
     real = torch.optim.Adam.step
@@ -162,10 +164,11 @@ def test_train_fault_state_unchanged(monkeypatch):
                              for p in g["params"]), saved):
                 p.copy_(s)
     monkeypatch.setattr(torch.optim.Adam, "step", step)
-    assert _run("grid64-pile-train")["correct"] is False
+    assert _run(cell)["correct"] is False
 
 
-def test_train_fault_half_the_batch(monkeypatch):
+@pytest.mark.parametrize("cell", cells("train"))
+def test_train_fault_half_the_batch(cell, monkeypatch):
     train = spec.loop("train")
     real = train.loss
 
@@ -175,7 +178,7 @@ def test_train_fault_half_the_batch(monkeypatch):
         w[:loss.shape[0] // 2] = 2.0
         return loss * w
     monkeypatch.setattr(train, "loss", half)
-    assert _run("grid64-pile-train")["correct"] is False
+    assert _run(cell)["correct"] is False
 
 
 def _altered_in_training(s, out):
@@ -184,10 +187,11 @@ def _altered_in_training(s, out):
     return _altered(s, out) if torch.is_grad_enabled() else out
 
 
-def test_train_fault_answer_altered(monkeypatch):
+@pytest.mark.parametrize("cell", cells("train"))
+def test_train_fault_answer_altered(cell, monkeypatch):
     monkeypatch.setattr(program, "batched_step",
                         _wrap_step(_altered_in_training))
-    assert _run("grid64-pile-train")["correct"] is False
+    assert _run(cell)["correct"] is False
 
 
 # --- the control in the program's place -------------------------------------
