@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from lcp_physics_tpu_torch.utils import left_orthogonal, rotate
+from lcp_physics_tpu_torch.utils.observe import span
 
 _TINY = 1e-12
 
@@ -505,6 +506,49 @@ def any_aabb_overlap(p, verts, radius, counts, pairs, margin=None):
     return hit
 
 
+def _hull_rows(wv, counts_t, pos, boxes, margin, ii, jj, hull_budget):
+    """The hull/hull pairs' contact rows (normal, ra, rb, depth, ia, ib,
+    valid), each (B, 2P, ...): the pair AABB gate, :func:`hull_hull_pairs`
+    and its 2-point manifolds as single-contact rows sharing the normal,
+    pair-major.  ``hull_budget`` as in :func:`find_contacts`."""
+    B = wv.shape[0]
+    if 0 < hull_budget < len(ii):
+        # Rank every static pair by AABB-overlap extent and run the
+        # hull/hull kernel on each world's hull_budget best.
+        score = aabb_overlap_depth(boxes, ii, jj)
+        sel = torch.sort(score, dim=-1, descending=True,
+                         stable=True).indices[:, :hull_budget]
+        ii, jj = ii[sel], jj[sel]
+    P = ii.shape[-1]
+    ok = aabb_overlap(boxes, ii, jj)
+    hh_m = (_pick(margin, ii) + _pick(margin, jj) if margin is not None
+            else torch.zeros((B, P), dtype=wv.dtype, device=wv.device))
+    nrm_x, nrm_y, rax, ray, rbx, rby, d2, v2 = hull_hull_pairs(
+        wv, counts_t, pos, ii, jj, hh_m)
+    # (B, 2, P) -> (B, 2P), pair-major
+    rows = lambda a: a.transpose(-1, -2).reshape(B, 2 * P)
+    xy = lambda x, y: torch.stack([rows(x), rows(y)], dim=-1)
+    n2 = lambda a: a[:, None, :].expand(B, 2, P)
+    return (xy(n2(nrm_x), n2(nrm_y)), xy(rax, ray), xy(rbx, rby), rows(d2),
+            torch.repeat_interleave(ii, 2, dim=-1).expand(B, -1),
+            torch.repeat_interleave(jj, 2, dim=-1).expand(B, -1),
+            rows(v2 & ok[:, None, :]))
+
+
+def _compact(c, c_max):
+    """The ``c_max`` deepest valid rows of a contact buffer ``c`` of more
+    rows.  A stable sort keeps equal depths in index order, as XLA's
+    top_k does."""
+    inf = torch.tensor(float("inf"), dtype=c.depth.dtype,
+                       device=c.depth.device)
+    score = torch.where(c.valid, c.depth, -inf)
+    keep = torch.sort(score, dim=-1, descending=True,
+                      stable=True).indices[:, :c_max]
+    keep2 = keep[..., None].expand(-1, -1, 2)
+    return Contacts(*(x.gather(1, keep2 if x.dim() == 3 else keep)
+                      for x in c))
+
+
 def find_contacts(p, verts, radius, counts, pairs, c_max, margin=None,
                   hull_budget=0):
     """Collision pipeline for a batch of worlds.
@@ -555,29 +599,9 @@ def find_contacts(p, verts, radius, counts, pairs, c_max, margin=None,
 
     ii, jj = _on(pairs["hh"], dev)
     if len(ii):
-        if 0 < hull_budget < len(ii):
-            # Rank every static pair by AABB-overlap extent and run the
-            # hull/hull kernel on each world's hull_budget best.
-            score = aabb_overlap_depth(boxes, ii, jj)
-            sel = torch.sort(score, dim=-1, descending=True,
-                             stable=True).indices[:, :hull_budget]
-            ii, jj = ii[sel], jj[sel]
-        P = ii.shape[-1]
-        ok = aabb_overlap(boxes, ii, jj)
-        hh_m = (_pick(margin, ii) + _pick(margin, jj) if margin is not None
-                else torch.zeros((B, P), dtype=dt, device=dev))
-        nrm_x, nrm_y, rax, ray, rbx, rby, d2, v2 = hull_hull_pairs(
-            wv, counts_t, pos, ii, jj, hh_m)
-        # The 2-point manifolds as single-contact rows sharing the normal,
-        # pair-major: (B, 2, P) -> (B, 2P).
-        rows = lambda a: a.transpose(-1, -2).reshape(B, 2 * P)
-        xy = lambda x, y: torch.stack([rows(x), rows(y)], dim=-1)
-        n2 = lambda a: a[:, None, :].expand(B, 2, P)
-        outs.append((xy(n2(nrm_x), n2(nrm_y)), xy(rax, ray), xy(rbx, rby),
-                     rows(d2),
-                     torch.repeat_interleave(ii, 2, dim=-1).expand(B, -1),
-                     torch.repeat_interleave(jj, 2, dim=-1).expand(B, -1),
-                     rows(v2 & ok[:, None, :])))
+        with span("step.narrowphase.hull"):
+            outs.append(_hull_rows(wv, counts_t, pos, boxes, margin, ii, jj,
+                                   hull_budget))
 
     if not outs:
         z2 = torch.zeros((B, c_max, 2), dtype=dt, device=dev)
@@ -597,17 +621,8 @@ def find_contacts(p, verts, radius, counts, pairs, c_max, margin=None,
         return Contacts(pad2(normal), pad2(ra), pad2(rb), pad1(depth),
                         pad1(ia), pad1(ib), pad1(valid))
 
-    # Compaction: keep the c_max deepest valid contacts.  A stable sort
-    # keeps equal depths in index order, as XLA's top_k does.
-    inf = torch.tensor(float("inf"), dtype=dt, device=dev)
-    score = torch.where(valid, depth, -inf)
-    keep = torch.sort(score, dim=-1, descending=True,
-                      stable=True).indices[:, :c_max]
-    keep2 = keep[..., None].expand(-1, -1, 2)
-    return Contacts(normal.gather(1, keep2), ra.gather(1, keep2),
-                    rb.gather(1, keep2), depth.gather(1, keep),
-                    ia.gather(1, keep), ib.gather(1, keep),
-                    valid.gather(1, keep))
+    with span("step.narrowphase.compact"):
+        return _compact(Contacts(normal, ra, rb, depth, ia, ib, valid), c_max)
 
 
 def max_penetration(p, verts, radius, counts, pairs):

@@ -23,6 +23,10 @@ with its stages ``step.narrowphase``, ``step.assemble``,
 ``step.integrate`` and ``step.penetration`` (``step.tile`` and
 ``step.cat`` in the ``batch_tile`` loop), and each counted read the span
 ``step.read.<key>``; the LCP inside it is the solver's ``solver``.
+Inside ``step.narrowphase``, ``find_contacts`` opens
+``step.narrowphase.hull`` around the hull/hull pairs and
+``step.narrowphase.compact`` around the compaction, which runs only when
+the candidate rows exceed ``c_max``.
 
 The step is differentiable end to end: gradients pass through the
 narrowphase, the contact compaction (a gather) and the assembly as plain

@@ -47,7 +47,10 @@ with ``solver.fused`` (the fused whole-IPM kernel, its start included), or
 ``solver.start`` (the initial point on the host) and then
 ``solver.fused_iter`` (the per-iteration-fused loop)
 or one ``solver.iter`` a pass of the unfused loop, each counted read
-``solver.read.<key>``; ``lcp.lcp``'s backward is ``solver.bwd``.
+``solver.read.<key>``; ``lcp.lcp``'s backward is ``solver.bwd``.  Each
+rotated Schur factor of the host paths (the start's, an iteration's, the
+backward's: ``rot_schur`` and its blocked or lane factor) is the span
+``solver.factor``.
 """
 from __future__ import annotations
 
@@ -198,13 +201,15 @@ def _rot_factor_factory(operands, F, reg, factor_precision=None, refine=0,
         return apply
 
     def factor_rot(d_inv):
-        rs = ipm.rot_schur(P2, d_inv, mu_v, v_, C_, reg)
-        if inv_mode:
-            fac = linalg.inv_factor_blocks(rs.S, exact)
-            apply, steps = make_apply_S2(rs.dmain, rs.bn), INV_REFINE + refine
-        else:
-            fac = _factor(rs.S, backend, exact)
-            apply, steps = _dense_apply(rs.S), refine
+        with span("solver.factor"):
+            rs = ipm.rot_schur(P2, d_inv, mu_v, v_, C_, reg)
+            if inv_mode:
+                fac = linalg.inv_factor_blocks(rs.S, exact)
+                apply = make_apply_S2(rs.dmain, rs.bn)
+                steps = INV_REFINE + refine
+            else:
+                fac = _factor(rs.S, backend, exact)
+                apply, steps = _dense_apply(rs.S), refine
         Dginv, cn, delta, g_u = rs.Dginv, rs.cn, rs.delta, rs.g_u
 
         def reduced(rhs, trans=0, r1_zero=False):

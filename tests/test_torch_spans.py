@@ -1,8 +1,9 @@
 """The port's spans (``utils.observe.span``) under a CPU-only profiler:
 which spans the batched step and the solver open, how they nest, that
-``solver.iter`` counts the unfused loop's iterations, that tracing
-changes no output, and that with no profiler a span is the shared null
-context."""
+``solver.iter`` counts the unfused loop's iterations, that the hull/hull
+narrowphase, the compaction and each rotated Schur factor open theirs,
+that tracing changes no output, and that with no profiler a span is the
+shared null context."""
 import numpy as np
 import pytest
 import torch
@@ -21,19 +22,28 @@ F64 = dict(dtype=torch.float64, device="cpu")
 LAYERS = ("step", "solver")
 SIDE, C_MAX = 4, 32
 CONFIG = SimConfig(max_iter=12, solver_eps=1e-9)
+SQUARE = np.array([[-1.0, -1.0], [1.0, -1.0], [1.0, 1.0], [-1.0, 1.0]])
 
 
-def grid(B, spacing, v_std, seed=5):
-    """B worlds of a 4 x 4 grid of radius-1 circles, jittered by 0.01 and
-    given velocities normal(0, v_std), each world its own draw.  c_max 32:
-    the rotated system has K2 = 64 rows, past the fused kernel's 48, so a
-    contact step runs the unfused loop.  Returns (step, params, states)."""
-    N = SIDE * SIDE
+def grid(B, spacing, v_std, seed=5, side=SIDE, c_max=C_MAX, shape="circle"):
+    """B worlds of a ``side`` x ``side`` grid of radius-1 circles (or 2 x 2
+    squares of radius 0), jittered by 0.01 and given velocities
+    normal(0, v_std), each world its own draw.  A world has side^2
+    (side^2 - 1) / 2 candidate rows of circles and twice as many of squares
+    (two a hull pair).  Past 24 slots the rotated system (K2 = 2 c_max) is
+    past the fused kernel's 48 rows, so a contact step runs the host start
+    and the unfused loop.  Returns (step, params, states)."""
+    N = side * side
     rng = np.random.default_rng(seed)
-    static = make_scene_static([1] * N, c_max=C_MAX)
-    params = default_params(static, verts=np.zeros((N, 1, 2)),
-                            radius=np.ones(N), restitution=0.4, **F64)
-    gx, gy = np.meshgrid(np.arange(SIDE), np.arange(SIDE))
+    if shape == "square":
+        static = make_scene_static([4] * N, c_max=c_max)
+        verts, radius = np.broadcast_to(SQUARE, (N, 4, 2)), np.zeros(N)
+    else:
+        static = make_scene_static([1] * N, c_max=c_max)
+        verts, radius = np.zeros((N, 1, 2)), np.ones(N)
+    params = default_params(static, verts=verts, radius=radius,
+                            restitution=0.4, **F64)
+    gx, gy = np.meshgrid(np.arange(side), np.arange(side))
     pos = np.stack([gx.ravel(), gy.ravel()], -1) * spacing
     pos = pos + rng.uniform(-0.01, 0.01, (B, N, 2))
     p = np.concatenate([np.zeros((B, N, 1)), pos], -1)
@@ -138,3 +148,76 @@ def test_span_without_a_profiler_is_the_shared_null_context(monkeypatch):
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CPU]):
             observe.span("step")
+
+
+def two_steps(step, params, states):
+    s, _ = step(params, states, 0.01)
+    return step(params, s, 0.01)
+
+
+def test_hull_step_opens_the_hull_span_once_a_step():
+    step, params, states = grid(2, 2.01, 0.5, side=3, c_max=24, shape="square")
+    _, spans = traced(lambda: two_steps(step, params, states))
+    hull = named(spans, "step.narrowphase.hull")
+    narrow = named(spans, "step.narrowphase")
+    assert len(hull) == 2 == len(named(spans, "step"))
+    assert all(any(inside(h, n) for n in narrow) for h in hull)
+
+
+@pytest.mark.parametrize("shape, c_max, compactions", [
+    ("square", 11, 1), ("square", 12, 0), ("circle", 5, 1),
+    ("circle", 6, 0)])
+def test_compact_span_opens_exactly_when_rows_exceed_c_max(shape, c_max,
+                                                          compactions):
+    """A 2 x 2 pile has 12 candidate rows of squares, 6 of circles."""
+    step, params, states = grid(2, 2.01, 0.5, side=2, c_max=c_max, shape=shape)
+    _, spans = traced(lambda: step(params, states, 0.01))
+    narrow = named(spans, "step.narrowphase")
+    compact = named(spans, "step.narrowphase.compact")
+    assert len(compact) == compactions
+    assert all(any(inside(c, n) for n in narrow) for c in compact)
+
+
+def test_circle_step_opens_no_hull_span():
+    step, params, states = grid(2, 2.01, 0.5, side=3, c_max=24)
+    _, spans = traced(lambda: step(params, states, 0.01))
+    assert named(spans, "step.narrowphase")
+    assert not named(spans, "step.narrowphase.hull")
+
+
+@pytest.mark.parametrize("shape", ["circle", "square"])
+def test_factor_span_opens_once_per_factor(shape, monkeypatch):
+    """Every rotated Schur factor of the host start, the unfused loop and
+    the backward is one ``solver.factor``: one in the start, one in each
+    iteration, one in the backward."""
+    step, params, states = grid(2, 2.01, 0.5, side=3, c_max=32, shape=shape)
+    factors = []
+    real = pdipm._factor
+
+    def counted(*a, **kw):
+        factors.append(a[0].shape)
+        return real(*a, **kw)
+    monkeypatch.setattr(pdipm, "_factor", counted)
+    v = states.v.clone().requires_grad_(True)
+    s = WorldState(states.p, v, states.t)
+    _, spans = traced(lambda: step(params, s, 0.01)[0].p.sum().backward())
+    fac = named(spans, "solver.factor")
+    assert len(fac) == len(factors) and v.grad is not None
+    (start,) = named(spans, "solver.start")
+    (bwd,) = named(spans, "solver.bwd")
+    iters = named(spans, "solver.iter")
+    assert iters and sum(inside(f, start) for f in fac) == 1
+    assert sum(inside(f, bwd) for f in fac) == 1
+    for it in iters:
+        assert sum(inside(f, it) for f in fac) == 1
+    assert len(fac) == len(iters) + 2
+
+
+def test_hull_step_outputs_bit_identical_with_the_profiler_on_and_off():
+    step, params, states = grid(2, 2.01, 0.5, side=3, c_max=24, shape="square")
+    flat = lambda out: (out[0].p, out[0].v, out[0].t, *out[1])
+    plain = flat(two_steps(step, params, states))
+    on, spans = traced(lambda: two_steps(step, params, states))
+    assert len(named(spans, "step.narrowphase.compact")) == 2
+    for a, b in zip(plain, flat(on)):
+        assert torch.equal(a, b)
