@@ -738,10 +738,14 @@ def reset_counts():
 @contextlib.contextmanager
 def plain_kernels(what):
     """Route the solver through the plain torch versions (the comparison
-    path): the solver looks its kernels up on these modules.  Checks that
-    no kernel launched inside, so the comparison path was plain."""
+    path): the solver looks its kernels up on these modules, and its
+    unfused loop runs eagerly (a captured CUDA graph of a pass replays the
+    kernels it captured).  Checks that no kernel launched inside, so the
+    comparison path was plain."""
+    from lcp_physics_tpu_torch.lcp import pdipm
     from lcp_physics_tpu_torch.ops import ipm, ipm_iter, linalg
-    swaps = [(linalg, "lu_factor", linalg.plu_factor_ref),
+    swaps = [(pdipm, "loop_route", lambda *a: "eager"),
+             (linalg, "lu_factor", linalg.plu_factor_ref),
              (linalg, "lu_solve", linalg.plu_solve_ref),
              (linalg, "gj_inv_blocked", linalg.gj_inv_blocked_ref),
              (linalg, "gj_inv", linalg.gj_inv_ref),

@@ -36,7 +36,12 @@ iterations run with ``FUSE_ITER`` set, at refine 0 and rotated 88 < K2 <=
 256, in the fused per-iteration kernel (``ops.ipm_iter.fused_iter_ipm``),
 else in the packed unfused loop of the JAX package, with its Gondzio
 correctors and its per-iteration ``verbose`` line.  ``STARTS`` counts
-where each solve's start was taken.  Both host loops read
+where each solve's start was taken.  On CUDA tensors a pass of the
+unfused loop is one captured CUDA graph, replayed (``graph_loop``): the
+same kernels as the eager loop, without the host's launches; the loop
+runs eagerly on CPU tensors, for ``verbose``, over the pivoted library
+LU, inside a caller's capture and under autograd (``loop_route``), and
+``LOOP_ROUTES`` counts the passes by route.  Both host loops read
 one flag per iteration back to stop once every world is done
 (``HOST_READS["ipm_loop"]`` counts those reads; ``verbose`` adds one more
 read per iteration, counted as ``HOST_READS["verbose"]``).  ``m == 0`` is
@@ -46,22 +51,25 @@ Under a profiler a solve is the span ``solver`` (``utils.observe.span``),
 with ``solver.fused`` (the fused whole-IPM kernel, its start included), or
 ``solver.start`` (the initial point on the host) and then
 ``solver.fused_iter`` (the per-iteration-fused loop)
-or one ``solver.iter`` a pass of the unfused loop, each counted read
+or one ``solver.iter`` a pass of the unfused loop (around a replay, the
+span ``solver.graph``), each counted read
 ``solver.read.<key>``; ``lcp.lcp``'s backward is ``solver.bwd``.  Each
-rotated Schur factor of the host paths (the start's, an iteration's, the
-backward's: ``rot_schur`` and its blocked or lane factor) is the span
+rotated Schur factor of the host paths (the start's, an eager pass's,
+the backward's: ``rot_schur`` and its blocked or lane factor) is the span
 ``solver.factor``.
 """
 from __future__ import annotations
 
+import collections
 import math
+import threading
 from typing import NamedTuple
 
 import torch
 
 from lcp_physics_tpu_torch.lcp.cone import ConeF
 from lcp_physics_tpu_torch.ops import ipm, ipm_iter, linalg
-from lcp_physics_tpu_torch.utils import bump, host_read
+from lcp_physics_tpu_torch.utils import bump, host_read, tally
 from lcp_physics_tpu_torch.utils.observe import span
 
 HOST_READS = {"ipm_loop": 0, "verbose": 0}
@@ -72,6 +80,16 @@ STARTS = {"kernel": 0, "host": 0}
 # Factor sites whose system the size rule of resolve_backend sent to the
 # pivoted library LU (torch.linalg.lu_factor).
 ROUTES = {"library_lu": 0}
+# Passes of the unfused loop by the route that ran them (``loop_route``):
+# replays of its CUDA graph, or eager op by op; and the graphs captured.
+LOOP_ROUTES = {"graph": 0, "eager": 0}
+LOOP_CAPTURES = {"capture": 0}
+# The captured passes kept (``graph_loop``), by key, least recently used
+# dropped first; a pass serves one solve at a time.
+GRAPHS_KEPT = 8
+_GRAPHS = collections.OrderedDict()
+_GRAPHS_LOCK = threading.Lock()
+_CAPTURE_LOCK = threading.Lock()
 BACKENDS = ("auto", "pallas", "fused", "xla")
 _SQ2 = math.sqrt(2.0)
 
@@ -278,6 +296,8 @@ def _rot_factor_factory(operands, F, reg, factor_precision=None, refine=0,
     factor_rot.residual_ops = (res_down, res_up)
     factor_rot.has_reduced = True
     factor_rot.operands = operands
+    factor_rot.state = (P2, Ghat2, qinv, mu_v, v_)
+    factor_rot.pivoted = pivoted
     if blocked and linalg.inv_supported(K2):
         def iter_inv_raw(d_inv):
             rs = ipm.rot_schur(P2, d_inv, mu_v, v_, C_, reg)
@@ -389,6 +409,9 @@ def _gamma_factor_factory(operands, F, m, g_, reg, factor_precision=None,
     factor_schur_gamma.residual_ops = (res_down, res_up)
     factor_schur_gamma.has_reduced = True
     factor_schur_gamma.operands = operands
+    factor_schur_gamma.state = (P, Ghat, qinv) + (
+        (mu_v, v_) if cone else (Skg, Sgk, F_kk))
+    factor_schur_gamma.pivoted = backend == "xla"
     return factor_schur_gamma
 
 
@@ -416,7 +439,10 @@ def make_kkt_factor(Q, q_diag, G, A, F, reg, backend="auto", gamma_rows=0,
     Schur complement over P = Ghat Q^-1 Ghat^T, with the gamma rows (and,
     with ``fric_pair`` on the engine layout, the friction pair's u rows)
     eliminated when ``gamma_rows`` > 0 (module docstring).  All inputs
-    batched; F a dense (B, m, m) tensor or a ``ConeF``."""
+    batched; F a dense (B, m, m) tensor or a ``ConeF``.  Each factory
+    carries ``state``, the tensors it holds that come from the inputs
+    (which the graphed loop copies into its static twin), and
+    ``pivoted``, whether it takes the pivoted library LU."""
     n = Q.shape[-1]
     m, q = G.shape[-2], A.shape[-2]
     cone = isinstance(F, ConeF)
@@ -432,6 +458,9 @@ def make_kkt_factor(Q, q_diag, G, A, F, reg, backend="auto", gamma_rows=0,
             return lambda rhs, trans=0, r1_zero=False: _solve_refined(
                 fac, apply, rhs, trans, refine)
 
+        factor_dense.state = (Q, G, A, Fd)
+        factor_dense.pivoted = (backend == "xla"
+                                or n + m + q > linalg.MAX_BLOCKED_N)
         return factor_dense
 
     if gamma_rows == 0 or gamma_rows > m:
@@ -457,6 +486,8 @@ def make_kkt_factor(Q, q_diag, G, A, F, reg, backend="auto", gamma_rows=0,
 
             return solve
 
+        factor_schur.state = (P, Ghat, qinv, Fd)
+        factor_schur.pivoted = be == "xla"
         return factor_schur
 
     if (cone and fric_pair and F.fd == 2 and gamma_rows == F.C
@@ -550,33 +581,65 @@ def _max_step(v, dv, mask):
 
 
 class _Packed:
-    """Residuals, merit and the best-iterate tail of the packed loops, on
-    the iterate X = [z | s | lam | nu] (B, n + 2m + q); padded rows
-    (``row_mask`` 0) are left out of the complementarity measure and the
-    residual norm.  The residual products ride the factor's compact
+    """Residuals, merit, the iterate's bookkeeping and the best-iterate
+    tail of the packed loops, on the iterate X = [z | s | lam | nu]
+    (B, n + 2m + q); padded rows (``row_mask`` 0) are left out of the
+    complementarity measure and the residual norm, and pinned at s = h,
+    lam = tiny.  The residual products ride the factor's compact
     ``residual_ops`` where it has them, else dense G, A, F and Q (or its
-    diagonal ``q_diag``)."""
+    diagonal ``q_diag``); Q, G and A are kept only where they are read."""
 
-    def __init__(self, kkt_factor, Q, q_diag, G, A, p, h, b, F, row_mask):
+    def __init__(self, kkt_factor, Q, q_diag, G, A, p, h, b, F, row_mask,
+                 consts):
         B, n = p.shape
         m, q = h.shape[-1], b.shape[-1]
-        dev = p.device
+        dt, dev = p.dtype, p.device
+        tiny = consts["tiny"]
         self.res_ops = getattr(kkt_factor, "residual_ops", None)
-        self.Q, self.q_diag, self.G, self.A = Q, q_diag, G, A
+        self.Q = Q if q_diag is None else None
+        self.G, self.A = (None, None) if self.res_ops else (G, A)
+        self.q_diag = q_diag
         self.p, self.h, self.b, self.F = p, h, b, F
         self.n, self.m = n, m
         self.maskb = row_mask > 0
-        self.maskf = row_mask.to(p.dtype)
+        self.maskf = row_mask.to(dt)
         self.rcount = torch.clamp(self.maskf.sum(-1), min=1.0)
-        self.rmask = torch.cat([torch.ones((B, n), dtype=torch.bool,
-                                           device=dev), self.maskb,
-                                torch.ones((B, q), dtype=torch.bool,
-                                           device=dev)], -1)
+        ones_n = torch.ones((B, n), dtype=torch.bool, device=dev)
+        ones_q = torch.ones((B, q), dtype=torch.bool, device=dev)
+        self.rmask = torch.cat([ones_n, self.maskb, ones_q], -1)
+        self.mask2 = torch.cat([self.maskb, self.maskb], -1)
+        # a step's floor (tiny on s and lam) and the pin of padded rows
+        fmax = torch.finfo(dt).max
+        self.floor = torch.cat([
+            torch.full((n,), -fmax, dtype=dt, device=dev),
+            torch.full((2 * m,), tiny, dtype=dt, device=dev),
+            torch.full((q,), -fmax, dtype=dt, device=dev)])
+        self.pinm = torch.cat([ones_n, self.maskb, self.maskb, ones_q], -1)
+        self.pinv = torch.cat([torch.zeros((B, n), dtype=dt, device=dev), h,
+                               torch.full((B, m), tiny, dtype=dt, device=dev),
+                               torch.zeros((B, q), dtype=dt, device=dev)], -1)
+
+    def tensors(self):
+        """Every tensor a pass of the loop reads from here, in a fixed
+        order (what the graphed loop copies into its static twin)."""
+        F = ((self.F.mu, self.F.valid) if isinstance(self.F, ConeF)
+             else (self.F,))
+        return [t for t in (self.Q, self.q_diag, self.G, self.A, self.p,
+                            self.h, self.b, *F, self.maskb, self.maskf,
+                            self.rcount, self.rmask, self.mask2, self.floor,
+                            self.pinm, self.pinv) if t is not None]
 
     def split(self, X):
         n, m = self.n, self.m
         return X[:, :n], X[:, n:n + m], X[:, n + m:n + 2 * m], \
             X[:, n + 2 * m:]
+
+    def rz_rhs(self, like, rows):
+        """A right-hand side shaped like ``like``, zero but on the rz
+        rows."""
+        rhs = torch.zeros_like(like)
+        rhs[:, self.n:self.n + self.m] = rows
+        return rhs
 
     def comp_mu(self, s, lam):
         return (s * lam * self.maskf).sum(-1) / self.rcount
@@ -619,164 +682,324 @@ class _Packed:
                              self.resid_norm(self.residuals(X)), iters)
 
 
-def unfused_loop(kkt_factor, pk, z, s, lam, nu, *, max_iter, tol, consts,
-                 not_improved_lim, stall_rtol, gondzio=0, verbose=False):
-    """The packed unfused interior-point loop of the JAX package from the
-    iterate (z, s, lam, nu), with ``pk`` the loop's :class:`_Packed`: the
-    state is one (B, n + 2m + q) tensor X = [z | s | lam | nu]; per
-    iteration one factor, the predictor solve and the corrector as a delta
-    solve (through ``solve.reduced`` and one z-recovery where the factor
-    has them, else full solves), ``gondzio`` Gondzio centrality correctors,
-    the 0.99 step, the floor clamp, the pin of padded rows and the
-    divergence guard; stall counter, ``stall_rtol``, best-iterate return.
-    ``verbose`` prints the JAX package's line per iteration.  Stops after
-    ``max_iter`` iterations or once every world is done (one host read per
-    iteration).  Returns a :class:`PdipmSolution`."""
+class _LoopState(NamedTuple):
+    """The unfused loop's state, which each pass updates in place."""
+
+    X: torch.Tensor           # the iterate [z | s | lam | nu]
+    bestX: torch.Tensor       # the best iterate seen
+    best_merit: torch.Tensor  # (B,) its merit
+    done: torch.Tensor        # (B,) bool: the world has stopped
+    iters: torch.Tensor       # (B,) int32: the pass it stopped at
+    stall: torch.Tensor       # (B,) int32: passes since the merit improved
+
+
+def _loop_state(z, s, lam, nu, max_iter):
+    """The state before the first pass, from the iterate (z, s, lam, nu)."""
+    X = torch.cat([z, s, lam, nu], -1)
+    B, dt, dev = X.shape[0], X.dtype, X.device
+    return _LoopState(
+        X, X.clone(),
+        torch.full((B,), torch.finfo(dt).max / 8, dtype=dt, device=dev),
+        torch.zeros(B, dtype=torch.bool, device=dev),
+        torch.full((B,), max_iter, dtype=torch.int32, device=dev),
+        torch.zeros(B, dtype=torch.int32, device=dev))
+
+
+def _iteration(kkt_factor, pk, st, i, *, tol, consts, not_improved_lim,
+               stall_rtol, gondzio=0, verbose=False):
+    """One pass of the packed unfused loop on the :class:`_LoopState`
+    ``st``, in place: the merit and the stall bookkeeping, one factor, the
+    predictor solve and the corrector as a delta solve (through
+    ``solve.reduced`` and one z-recovery where the factor has them, else
+    full solves), ``gondzio`` Gondzio centrality correctors, the 0.99
+    step, the floor clamp, the pin of padded rows and the divergence
+    guard.  ``i`` is the pass's index: a Python int, or on the graphed
+    route a 0-d int32 tensor on the device, filled before each replay.
+    ``verbose`` prints the JAX package's line (one host read)."""
     B, n = pk.p.shape
-    m, q = pk.m, pk.b.shape[-1]
+    m = pk.m
     dt, dev = pk.p.dtype, pk.p.device
     tiny = consts["tiny"]
     has_reduced = getattr(kkt_factor, "has_reduced", False)
-    maskb = pk.maskb
+    maskb, mask2 = pk.maskb, pk.mask2
     sls = slice(n, n + 2 * m)
-    ones_n = torch.ones((B, n), dtype=torch.bool, device=dev)
-    ones_q = torch.ones((B, q), dtype=torch.bool, device=dev)
-    fmax = torch.finfo(dt).max
-    floor_row = torch.cat([torch.full((n,), -fmax, dtype=dt, device=dev),
-                           torch.full((2 * m,), tiny, dtype=dt, device=dev),
-                           torch.full((q,), -fmax, dtype=dt, device=dev)])
-    pinm = torch.cat([ones_n, maskb, maskb, ones_q], -1)
-    pinv = torch.cat([torch.zeros((B, n), dtype=dt, device=dev), pk.h,
-                      torch.full((B, m), tiny, dtype=dt, device=dev),
-                      torch.zeros((B, q), dtype=dt, device=dev)], -1)
-    mask2 = torch.cat([maskb, maskb], -1)
-    comp_mu = pk.comp_mu
+    X, done = st.X, st.done
 
-    def rz_rhs(like, rows):
-        """A right-hand side that is zero but on the rz rows."""
-        rhs = torch.zeros_like(like)
-        rhs[:, n:n + m] = rows
-        return rhs
+    merit, r = pk.merit(X)
+    _, s, lam, _ = pk.split(X)
+    mu = pk.comp_mu(s, lam)
+    improved = merit < st.best_merit
+    sig = (merit < st.best_merit * (1.0 - stall_rtol) if stall_rtol > 0
+           else improved)
+    st.bestX.copy_(torch.where(improved[:, None], X, st.bestX))
+    st.best_merit.copy_(torch.minimum(merit, st.best_merit))
+    st.stall.copy_(torch.where(sig, 0, st.stall + 1))
+    new_done = done | (merit < tol)
+    if not_improved_lim > 0:   # the stall exit, from pass lim + 2 on
+        new_done = new_done | ((st.stall >= not_improved_lim)
+                               & (i >= not_improved_lim + 2))
+    st.iters.copy_(torch.where(new_done & ~done, i, st.iters))
+    if verbose:   # the reference's residual dump: one host read
+        mu_max, r_max, d = host_read(
+            HOST_READS, "verbose", "solver", torch.stack([
+                mu.amax(), pk.resid_norm(r).amax(), new_done.sum().to(dt)]))
+        print(f"pdipm iter {i}: mu={mu_max:.3e} resid={r_max:.3e} "
+              f"done={int(d)}/{B}", flush=True)
 
-    X = torch.cat([z, s, lam, nu], -1)
-    bestX = X
-    best_merit = torch.full((B,), fmax / 8, dtype=dt, device=dev)
-    done = torch.zeros(B, dtype=torch.bool, device=dev)
-    iters = torch.full((B,), max_iter, dtype=torch.int32, device=dev)
-    stall = torch.zeros(B, dtype=torch.int32, device=dev)
+    lam_safe = torch.clamp(lam, min=tiny)
+    d_inv = torch.clamp(s / lam_safe, consts["dinv_min"], consts["dinv_max"])
+    kkt_solve = kkt_factor(d_inv)
+
+    # predictor: rhs = -r with the complementarity term on the rz rows
+    r4 = s * lam
+    rhs_aff = -r
+    rhs_aff[:, n:n + m] += r4 / lam_safe
+    if has_reduced:
+        wa_full, wk_a = kkt_solve.reduced(rhs_aff)
+        dlam_a = wa_full[:, :m]
+    else:
+        sol_a = kkt_solve(rhs_aff)
+        dlam_a = sol_a[:, n:n + m]
+    ds_a = -r4 / lam_safe - d_inv * dlam_a
+    dsl_a = torch.cat([ds_a, dlam_a], -1)
+    sl = X[:, sls]
+    alpha_a = _max_step(sl, dsl_a, mask2)
+    sl_aff = sl + alpha_a[:, None] * dsl_a
+    mu_aff = pk.comp_mu(sl_aff[:, :m], sl_aff[:, m:])
+    sigma = torch.clamp(mu_aff / torch.clamp(mu, min=tiny), 0.0, 1.0) ** 3
+
+    # corrector, solved as a delta on the predictor (r1 block zero)
+    r4c = r4 + ds_a * dlam_a - (sigma * mu)[:, None]
+    rhs_d = pk.rz_rhs(r, (r4c - r4) / lam_safe)
+    if has_reduced:
+        wd_full, wk_d = kkt_solve.reduced(rhs_d, r1_zero=True)
+        w_full = wa_full + wd_full
+        dlam = w_full[:, :m]
+        ds = -r4c / lam_safe - d_inv * dlam
+        wk_tot = wk_a + wk_d
+        # with gondzio, z waits for the accepted correctors' wk
+        dz = (kkt_solve.z_from(rhs_aff[:, :n], wk_tot) if gondzio == 0
+              else torch.zeros((B, n), dtype=dt, device=dev))
+        tail = w_full[:, m:]
+    else:
+        sol_c = sol_a + kkt_solve(rhs_d, r1_zero=True)
+        dlam = sol_c[:, n:n + m]
+        ds = -r4c / lam_safe - d_inv * dlam
+        dz, tail = sol_c[:, :n], sol_c[:, n + m:]
+    dX = torch.cat([dz, ds, dlam, tail], -1)
+    alpha_raw = _max_step(sl, dX[:, sls], mask2)
+
+    # Gondzio multiple centrality correctors: each reuses the factor for
+    # one more solve toward the box [0.1, 10] * sigma mu, accepted per
+    # world only where it buys step length
+    if gondzio > 0:
+        mu_t = (sigma * mu)[:, None]
+        for _ in range(gondzio):
+            a_hat = torch.clamp(alpha_raw + 0.08, max=1.0)[:, None]
+            sl_t = sl + a_hat * dX[:, sls]
+            v_t = sl_t[:, :m] * sl_t[:, m:]
+            r4g = v_t - torch.clamp(v_t, min=0.1 * mu_t, max=10.0 * mu_t)
+            r4g = torch.where(maskb, r4g, 0.0)
+            rhs_g = pk.rz_rhs(r, r4g / lam_safe)
+            if has_reduced:
+                wg_full, wk_g = kkt_solve.reduced(rhs_g, r1_zero=True)
+                dlam_g = wg_full[:, :m]
+                dz_g, tail_g = torch.zeros_like(dz), wg_full[:, m:]
+            else:
+                sol_g = kkt_solve(rhs_g, r1_zero=True)
+                dlam_g = sol_g[:, n:n + m]
+                dz_g, tail_g = sol_g[:, :n], sol_g[:, n + m:]
+            ds_g = -r4g / lam_safe - d_inv * dlam_g
+            dX_c = dX + torch.cat([dz_g, ds_g, dlam_g, tail_g], -1)
+            alpha_c = _max_step(sl, dX_c[:, sls], mask2)
+            ok = alpha_c >= torch.clamp(alpha_raw + 0.008, max=1.0)
+            dX = torch.where(ok[:, None], dX_c, dX)
+            if has_reduced:
+                wk_tot = wk_tot + torch.where(ok[:, None], wk_g, 0.0)
+            alpha_raw = torch.where(ok, alpha_c, alpha_raw)
+        if has_reduced:
+            dX = torch.cat([kkt_solve.z_from(rhs_aff[:, :n], wk_tot),
+                            dX[:, n:]], -1)
+    alpha = 0.99 * alpha_raw
+
+    X_n = torch.maximum(X + alpha[:, None] * dX, pk.floor)
+    X_n = torch.where(pk.pinm, X_n, pk.pinv)
+    bad = ~torch.isfinite(X_n).all(-1)     # divergence guard
+    halt = new_done | bad
+    X.copy_(torch.where(halt[:, None], X, X_n))
+    done.copy_(done | halt)
+
+
+def unfused_loop(kkt_factor, pk, z, s, lam, nu, *, max_iter, **kw):
+    """The packed unfused interior-point loop of the JAX package from the
+    iterate (z, s, lam, nu), run eagerly, op by op, with ``pk`` the
+    loop's :class:`_Packed`: the state is one (B, n + 2m + q) tensor
+    X = [z | s | lam | nu] and its bookkeeping (:class:`_LoopState`), a
+    pass is :func:`_iteration` (``kw`` its options) in the span
+    ``solver.iter``, counted in ``LOOP_ROUTES["eager"]``.  Stops after
+    ``max_iter`` passes or once every world is done (one host read before
+    every pass after the first).  Returns a :class:`PdipmSolution`."""
+    st = _loop_state(z, s, lam, nu, max_iter)
     for i in range(max_iter):
-        if i and host_read(HOST_READS, "ipm_loop", "solver", done.all()):
+        if i and host_read(HOST_READS, "ipm_loop", "solver", st.done.all()):
             break
         with span("solver.iter"):
-            merit, r = pk.merit(X)
-            _, s, lam, _ = pk.split(X)
-            mu = comp_mu(s, lam)
-            improved = merit < best_merit
-            bestX = torch.where(improved[:, None], X, bestX)
-            sig = (merit < best_merit * (1.0 - stall_rtol) if stall_rtol > 0
-                   else improved)
-            best_merit = torch.minimum(merit, best_merit)
-            stall = torch.where(sig, 0, stall + 1)
-            if not_improved_lim > 0 and i >= not_improved_lim + 2:
-                stalled = stall >= not_improved_lim
-            else:
-                stalled = torch.zeros_like(done)
-            new_done = done | (merit < tol) | stalled
-            iters = torch.where(new_done & ~done, i, iters)
-            if verbose:   # the reference's residual dump: one host read
-                mu_max, r_max, d = host_read(
-                    HOST_READS, "verbose", "solver", torch.stack([
-                        mu.amax(), pk.resid_norm(r).amax(),
-                        new_done.sum().to(dt)]))
-                print(f"pdipm iter {i}: mu={mu_max:.3e} resid={r_max:.3e} "
-                      f"done={int(d)}/{B}", flush=True)
+            _iteration(kkt_factor, pk, st, i, **kw)
+        bump(LOOP_ROUTES, "eager")
+    return pk.solution(st.X, st.bestX, st.best_merit, st.iters)
 
-            lam_safe = torch.clamp(lam, min=tiny)
-            d_inv = torch.clamp(s / lam_safe, consts["dinv_min"],
-                                consts["dinv_max"])
-            kkt_solve = kkt_factor(d_inv)
 
-            # predictor: rhs = -r with the complementarity term on the rz rows
-            r4 = s * lam
-            rhs_aff = -r
-            rhs_aff[:, n:n + m] += r4 / lam_safe
-            if has_reduced:
-                wa_full, wk_a = kkt_solve.reduced(rhs_aff)
-                dlam_a = wa_full[:, :m]
-            else:
-                sol_a = kkt_solve(rhs_aff)
-                dlam_a = sol_a[:, n:n + m]
-            ds_a = -r4 / lam_safe - d_inv * dlam_a
-            dsl_a = torch.cat([ds_a, dlam_a], -1)
-            sl = X[:, sls]
-            alpha_a = _max_step(sl, dsl_a, mask2)
-            sl_aff = sl + alpha_a[:, None] * dsl_a
-            mu_aff = comp_mu(sl_aff[:, :m], sl_aff[:, m:])
-            sigma = torch.clamp(mu_aff / torch.clamp(mu, min=tiny), 0.0,
-                                1.0) ** 3
+def loop_route(cuda, verbose, pivoted, capturing, recording):
+    """Where the unfused loop runs (``'eager'`` or ``'graph'``), from what
+    the solver observes: eagerly on CPU tensors (``not cuda``), for
+    ``verbose`` (its line is a host read inside a pass), for a factor
+    that takes the pivoted library LU (``torch.linalg.lu_factor`` checks
+    its result on the host), when the caller's stream is already
+    capturing a graph, and where autograd records the loop (a graph
+    carries no autograd); else as the replayed CUDA graph of a pass
+    (:func:`graph_loop`)."""
+    if not cuda or verbose or pivoted or capturing or recording:
+        return "eager"
+    return "graph"
 
-            # corrector, solved as a delta on the predictor (r1 block zero)
-            r4c = r4 + ds_a * dlam_a - (sigma * mu)[:, None]
-            rhs_d = rz_rhs(r, (r4c - r4) / lam_safe)
-            if has_reduced:
-                wd_full, wk_d = kkt_solve.reduced(rhs_d, r1_zero=True)
-                w_full = wa_full + wd_full
-                dlam = w_full[:, :m]
-                ds = -r4c / lam_safe - d_inv * dlam
-                wk_tot = wk_a + wk_d
-                # with gondzio, z waits for the accepted correctors' wk
-                dz = (kkt_solve.z_from(rhs_aff[:, :n], wk_tot) if gondzio == 0
-                      else torch.zeros((B, n), dtype=dt, device=dev))
-                tail = w_full[:, m:]
-            else:
-                sol_c = sol_a + kkt_solve(rhs_d, r1_zero=True)
-                dlam = sol_c[:, n:n + m]
-                ds = -r4c / lam_safe - d_inv * dlam
-                dz, tail = sol_c[:, :n], sol_c[:, n + m:]
-            dX = torch.cat([dz, ds, dlam, tail], -1)
-            alpha_raw = _max_step(sl, dX[:, sls], mask2)
 
-            # Gondzio multiple centrality correctors: each reuses the factor
-            # for one more solve toward the box [0.1, 10] * sigma mu, accepted
-            # per world only where it buys step length
-            if gondzio > 0:
-                mu_t = (sigma * mu)[:, None]
-                for _ in range(gondzio):
-                    a_hat = torch.clamp(alpha_raw + 0.08, max=1.0)[:, None]
-                    sl_t = sl + a_hat * dX[:, sls]
-                    v_t = sl_t[:, :m] * sl_t[:, m:]
-                    r4g = v_t - torch.clamp(v_t, min=0.1 * mu_t,
-                                            max=10.0 * mu_t)
-                    r4g = torch.where(maskb, r4g, 0.0)
-                    rhs_g = rz_rhs(r, r4g / lam_safe)
-                    if has_reduced:
-                        wg_full, wk_g = kkt_solve.reduced(rhs_g, r1_zero=True)
-                        dlam_g = wg_full[:, :m]
-                        dz_g, tail_g = torch.zeros_like(dz), wg_full[:, m:]
-                    else:
-                        sol_g = kkt_solve(rhs_g, r1_zero=True)
-                        dlam_g = sol_g[:, n:n + m]
-                        dz_g, tail_g = sol_g[:, :n], sol_g[:, n + m:]
-                    ds_g = -r4g / lam_safe - d_inv * dlam_g
-                    dX_c = dX + torch.cat([dz_g, ds_g, dlam_g, tail_g], -1)
-                    alpha_c = _max_step(sl, dX_c[:, sls], mask2)
-                    ok = alpha_c >= torch.clamp(alpha_raw + 0.008, max=1.0)
-                    dX = torch.where(ok[:, None], dX_c, dX)
-                    if has_reduced:
-                        wk_tot = wk_tot + torch.where(ok[:, None], wk_g, 0.0)
-                    alpha_raw = torch.where(ok, alpha_c, alpha_raw)
-                if has_reduced:
-                    dX = torch.cat([kkt_solve.z_from(rhs_aff[:, :n], wk_tot),
-                                    dX[:, n:]], -1)
-            alpha = 0.99 * alpha_raw
+def _record(body, stream):
+    """``body()`` captured as a CUDA graph on ``stream``.  One capture at a
+    time in the process; ``thread_local`` lets another shard's thread
+    (``parallel.batch``) allocate and launch meanwhile.  A failed capture
+    raises."""
+    graph = torch.cuda.CUDAGraph()
+    with _CAPTURE_LOCK, torch.cuda.graph(graph, stream=stream,
+                                         capture_error_mode="thread_local"):
+        body()
+    return graph
 
-            X_n = torch.maximum(X + alpha[:, None] * dX, floor_row)
-            X_n = torch.where(pinm, X_n, pinv)
-            bad = ~torch.isfinite(X_n).all(-1)     # divergence guard
-            halt = new_done | bad
-            X = torch.where(halt[:, None], X, X_n)
-            done = done | halt
-    return pk.solution(X, bestX, best_merit, iters)
+
+def _capture(body, dev):
+    """(graph, bumps): ``body()`` run once on a side stream of ``dev`` (the
+    warm-up: library handles and lazy module loads come before the
+    capture), then captured there (:func:`_record`), and the counter bumps
+    the capture made, which are undone (it ran nothing) for each replay to
+    repeat."""
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        body()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    log = []
+    try:
+        with tally() as log:
+            graph = _record(body, side)
+    finally:
+        for counts, key, n in log:
+            bump(counts, key, -n)
+    return graph, tuple(log)
+
+
+class _GraphLoop:
+    """One pass of the unfused loop (:func:`_iteration`) captured as a CUDA
+    graph (:func:`_capture`) over static buffers: the factor and
+    :class:`_Packed` that ``twin()`` builds from clones of a solve's
+    inputs, a copy of the solve's initial ``state`` and the pass index
+    ``i``; ``free`` is recorded after the last solve's work.  The
+    capture's warm-up is that solve's first pass, run eagerly on the
+    static buffers (counted in ``LOOP_ROUTES["eager"]``)."""
+
+    def __init__(self, twin, state, body_kw):
+        self.factor, self.pk = twin()
+        self.state = _LoopState(*(t.clone() for t in state))
+        dev = self.state.X.device
+        self.i = torch.zeros((), dtype=torch.int32, device=dev)
+        self.free = torch.cuda.Event()
+        self.body_kw = body_kw
+        self.graph, self.bumps = _capture(self.run_pass, dev)
+        bump(LOOP_ROUTES, "eager")
+        bump(LOOP_CAPTURES, "capture")
+
+    def run_pass(self):
+        _iteration(self.factor, self.pk, self.state, self.i, **self.body_kw)
+
+    def load(self, factor, pk, state):
+        """Copy a solve's factor operands, helpers and initial state into
+        the static buffers."""
+        for dst, src in zip((*self.factor.state, *self.pk.tensors(),
+                             *self.state),
+                            (*factor.state, *pk.tensors(), *state),
+                            strict=True):
+            dst.copy_(src)
+
+    def replay(self, i):
+        self.i.fill_(i)
+        with span("solver.graph"):
+            self.graph.replay()
+        for counts, key, n in self.bumps:
+            bump(counts, key, n)
+        bump(LOOP_ROUTES, "graph")
+
+
+def _checkout(key):
+    """A free captured pass of ``key``, after the work of its last solve
+    (on any stream), or None."""
+    with _GRAPHS_LOCK:
+        free = _GRAPHS.get(key)
+        g = free.pop() if free else None
+    if g is not None:
+        torch.cuda.current_stream(g.i.device).wait_event(g.free)
+    return g
+
+
+def _checkin(key, g):
+    """Return ``g`` to the cache, the least recently used passes past
+    ``GRAPHS_KEPT`` dropped once their last work is done."""
+    g.free.record(torch.cuda.current_stream(g.i.device))
+    dropped = []
+    with _GRAPHS_LOCK:
+        _GRAPHS.setdefault(key, []).append(g)
+        _GRAPHS.move_to_end(key)
+        while sum(map(len, _GRAPHS.values())) > GRAPHS_KEPT:
+            oldest = next(iter(_GRAPHS))
+            dropped.append(_GRAPHS[oldest].pop(0))
+            if not _GRAPHS[oldest]:
+                del _GRAPHS[oldest]
+    for d in dropped:
+        d.free.synchronize()
+
+
+def graph_loop(key, twin, kkt_factor, pk, z, s, lam, nu, *, max_iter,
+               **kw):
+    """:func:`unfused_loop` with each pass a replay of one CUDA graph: the
+    pass captured at the first solve of ``key`` (every shape, dtype,
+    device and option a pass reads) over the static buffers of
+    :class:`_GraphLoop` (``twin`` builds its factor and helpers), then for
+    every solve the operands, helpers and initial state copied in and the
+    graph replayed once a pass with the pass index filled in.  The same
+    kernels in the same order as the eager loop, so the same answer bit
+    for bit; the same exit read before every pass after the first, the
+    span ``solver.graph`` around each replay inside its ``solver.iter``,
+    and ``LOOP_ROUTES["graph"]`` counted once a pass (the first solve of a
+    key runs its first pass eagerly, as the capture's warm-up).  A cached
+    pass serves one solve at a time, so two threads never share its
+    buffers.  The solution is computed from the static state into fresh
+    tensors.  ``max_iter`` > 0."""
+    state = _loop_state(z, s, lam, nu, max_iter)
+    g = _checkout(key)
+    try:
+        if g is not None:
+            g.load(kkt_factor, pk, state)
+        for i in range(max_iter):
+            if i and host_read(HOST_READS, "ipm_loop", "solver",
+                               g.state.done.all()):
+                break
+            with span("solver.iter"):
+                if g is None:
+                    g = _GraphLoop(twin, state, kw)
+                else:
+                    g.replay(i)
+        st = g.state
+        return g.pk.solution(st.X, st.bestX, st.best_merit, st.iters.clone())
+    finally:
+        if g is not None:
+            _checkin(key, g)
 
 
 def pdipm_solve(Q, p, G, h, A, b, F, *, max_iter=20, tol=1e-7,
@@ -867,14 +1090,19 @@ def pdipm_solve(Q, p, G, h, A, b, F, *, max_iter=20, tol=1e-7,
                     operands, p, h, b, F.mu, F.valid, row_mask, C=F.C,
                     fd=F.fd, fric_pair=fuse_rot, **kw))
             return squeeze(sol)
-        kkt_factor = make_kkt_factor(Q, q_diag, G, A, F, consts["reg"],
-                                     backend,
-                                     gamma_rows if q_diag is not None else 0,
-                                     refine, factor_precision, fric_pair)
+        gr = gamma_rows if q_diag is not None else 0
+
+        def factor_and_helpers(Q, q_diag, G, A, p, h, b, F, row_mask):
+            fac = make_kkt_factor(Q, q_diag, G, A, F, consts["reg"], backend,
+                                  gr, refine, factor_precision, fric_pair)
+            return fac, _Packed(fac, Q, q_diag, G, A, p, h, b, F, row_mask,
+                                consts)
+
+        inputs = (Q, q_diag, G, A, p, h, b, F, row_mask)
+        kkt_factor, pk = factor_and_helpers(*inputs)
         bump(STARTS, "host")
         with span("solver.start"):
             z, s, lam, nu = _start(kkt_factor, p, h, b, row_mask, consts)
-        pk = lambda: _Packed(kkt_factor, Q, q_diag, G, A, p, h, b, F, row_mask)
         iter_inv_raw = getattr(kkt_factor, "iter_inv_raw", None)
         if (FUSE_ITER and plain_mehrotra and cone and max_iter > 0
                 and iter_inv_raw is not None
@@ -885,8 +1113,27 @@ def pdipm_solve(Q, p, G, h, A, b, F, *, max_iter=20, tol=1e-7,
                     kkt_factor.operands[1], kkt_factor.operands[2], p, h, b,
                     F.mu, F.valid, row_mask, torch.cat([z, s, lam, nu], -1),
                     C=F.C, inv_raw=iter_inv_raw, host_reads=HOST_READS, **kw)
-            sol = pk().solution(X, bestX, best_merit, iters)
-        else:
-            sol = unfused_loop(kkt_factor, pk(), z, s, lam, nu,
-                               gondzio=gondzio, verbose=verbose, **kw)
-        return squeeze(sol)
+            return squeeze(pk.solution(X, bestX, best_merit, iters))
+        cuda = p.is_cuda
+        tensors = (Q, G, h, A, b, p) + ((F.mu,) if cone else (F,))
+        route = loop_route(cuda, verbose, kkt_factor.pivoted,
+                           cuda and torch.cuda.is_current_stream_capturing(),
+                           torch.is_grad_enabled()
+                           and any(t.requires_grad for t in tensors))
+        if route == "eager" or max_iter == 0:
+            return squeeze(unfused_loop(kkt_factor, pk, z, s, lam, nu,
+                                        gondzio=gondzio, verbose=verbose,
+                                        **kw))
+        key = (dev, dt, tuple(Q.shape), q_diag is None, tuple(G.shape),
+               tuple(A.shape), F.fd if cone else tuple(F.shape), backend,
+               gr, refine, factor_precision, bool(fric_pair), tol,
+               not_improved_lim, stall_rtol, gondzio)
+
+        def twin():
+            return factor_and_helpers(*(
+                x if x is None else ConeF(x.mu.clone(), x.valid.clone(), x.fd)
+                if isinstance(x, ConeF) else x.clone() for x in inputs))
+
+        with torch.no_grad():
+            return squeeze(graph_loop(key, twin, kkt_factor, pk, z, s, lam,
+                                      nu, gondzio=gondzio, **kw))

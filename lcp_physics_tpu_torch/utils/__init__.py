@@ -8,6 +8,7 @@ matplotlib when called.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import os
@@ -19,14 +20,32 @@ import torch
 from lcp_physics_tpu_torch.utils.observe import span
 
 _COUNT_LOCK = threading.Lock()
+_TALLY = threading.local()
 
 
 def bump(counts, key, n=1):
     """``counts[key] += n`` under one process-wide lock.  The port's
     launch and host-read counters are bumped from the worker threads of a
-    sharded step (``parallel``), where a bare ``+=`` can lose counts."""
+    sharded step (``parallel``), where a bare ``+=`` can lose counts.
+    Inside :func:`tally` the bump is also logged."""
     with _COUNT_LOCK:
         counts[key] += n
+    log = getattr(_TALLY, "log", None)
+    if log is not None:
+        log.append((counts, key, n))
+
+
+@contextlib.contextmanager
+def tally():
+    """Log the bumps this thread makes inside the context, as
+    ``(counts, key, n)``, in a list it yields (other threads' bumps are
+    not logged)."""
+    outer = getattr(_TALLY, "log", None)
+    _TALLY.log = log = []
+    try:
+        yield log
+    finally:
+        _TALLY.log = outer
 
 
 def host_read(counts, key, layer, x):

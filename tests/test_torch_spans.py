@@ -95,6 +95,19 @@ def test_contact_step_nests_step_solver_and_iterations():
     assert all(inside(s, outer) for s in spans if s[0].startswith("step"))
 
 
+def test_eager_loop_opens_one_iter_span_a_pass():
+    """On CPU tensors the unfused loop runs eagerly: one ``solver.iter``
+    a pass, each counted in ``LOOP_ROUTES['eager']``, and no
+    ``solver.graph`` (the graphed route's replay span)."""
+    step, params, states = grid(3, 2.01, 0.5)
+    routes = dict(pdipm.LOOP_ROUTES)
+    _, spans = traced(lambda: step(params, states, 0.01))
+    iters = named(spans, "solver.iter")
+    assert len(iters) == pdipm.LOOP_ROUTES["eager"] - routes["eager"] > 2
+    assert pdipm.LOOP_ROUTES["graph"] == routes["graph"]
+    assert not named(spans, "solver.graph")
+
+
 def test_lcp_solve_of_eight_circles_opens_the_fused_span():
     args, kw, _ = lcp_problem(8, torch.float64, "cpu")
     p = args[1].clone().requires_grad_(True)
