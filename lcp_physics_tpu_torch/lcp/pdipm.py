@@ -141,12 +141,13 @@ def resolve_backend(backend, nk):
     return backend
 
 
-def _factor(K, backend, exact=False):
+def _factor(K, backend, exact=False, overwrite=False):
     """The pivoted library LU for ``backend='xla'``, else the port's
-    pivotless factor (kernels on a CUDA tensor)."""
+    pivotless factor (kernels on a CUDA tensor); ``overwrite``: the caller
+    reads K no more, so the blocked factor may keep its Lhat there."""
     if backend == "xla":
         return linalg.xla_factor(K)
-    return linalg.plu_factor(K, exact)
+    return linalg.plu_factor(K, exact, overwrite)
 
 
 def _solve_refined(fac, apply, rhs, trans, steps):
@@ -226,7 +227,8 @@ def _rot_factor_factory(operands, F, reg, factor_precision=None, refine=0,
                 apply = make_apply_S2(rs.dmain, rs.bn)
                 steps = INV_REFINE + refine
             else:
-                fac = _factor(rs.S, backend, exact)
+                # unrefined, nothing reads S after its factor: overwrite
+                fac = _factor(rs.S, backend, exact, not refine)
                 apply, steps = _dense_apply(rs.S), refine
         Dginv, cn, delta, g_u = rs.Dginv, rs.cn, rs.delta, rs.g_u
 
@@ -367,7 +369,7 @@ def _gamma_factor_factory(operands, F, m, g_, reg, factor_precision=None,
                                - reg * eye_mg)
             S[:, mg:, mg:].diagonal(dim1=1, dim2=2).sub_(reg)
             S = S + torch.einsum("bkg,bg,bgj->bkj", Skg, Dginv, Sgk)
-        fac = _factor(S, backend, exact)
+        fac = _factor(S, backend, exact, not refine)
         apply = _dense_apply(S)
 
         def reduced(rhs, trans=0, r1_zero=False):
@@ -452,7 +454,8 @@ def make_kkt_factor(Q, q_diag, G, A, F, reg, backend="auto", gamma_rows=0,
 
         def factor_dense(d_inv):
             K = _assemble_kkt(Q, G, A, Fd, d_inv, reg)
-            fac = _factor(K, resolve_backend(backend, n + m + q), exact)
+            fac = _factor(K, resolve_backend(backend, n + m + q), exact,
+                          not refine)
             apply = _dense_apply(K)
             # r1_zero accepted for interface parity: nothing to skip here
             return lambda rhs, trans=0, r1_zero=False: _solve_refined(
@@ -473,7 +476,7 @@ def make_kkt_factor(Q, q_diag, G, A, F, reg, backend="auto", gamma_rows=0,
             S = -P
             S[:, :m, :m] += Fd - d_inv[..., None] * eye_m - reg * eye_m
             S[:, m:, m:].diagonal(dim1=1, dim2=2).sub_(reg)
-            fac = _factor(S, be, exact)
+            fac = _factor(S, be, exact, not refine)
             apply = _dense_apply(S)
 
             def solve(rhs, trans=0, r1_zero=False):
@@ -531,8 +534,8 @@ def solve_eq_kkt(Q, p, A, b, reg=None, backend="auto"):
         torch.cat([Q + reg * torch.eye(n, **opts), A.transpose(1, 2)], -1),
         torch.cat([A, (-reg * torch.eye(q, **opts)).expand(B, q, q)], -1),
     ], -2)
-    sol = linalg.plu_solve(_factor(K, resolve_backend(backend, n + q)),
-                           torch.cat([-p, b], -1))
+    sol = linalg.plu_solve(_factor(K, resolve_backend(backend, n + q), False,
+                                   True), torch.cat([-p, b], -1))
     z, nu = sol[:, :n], sol[:, n:]
     if single:
         z, nu = z[0], nu[0]

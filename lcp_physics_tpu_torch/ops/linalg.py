@@ -18,8 +18,9 @@ with the JAX package's boundary:
   ``gj_inv`` at float64 or when ``exact`` is asked for (both in
   ``csrc/gj_inv.cu``; the scalar kernel spreads a world over a
   thread-block cluster, ``gj_shape``).  The panel products around them are
-  ``torch.matmul`` in the input dtype, as the JAX package leaves them to
-  XLA;
+  batched library products in the input dtype, as the JAX package leaves
+  them to XLA: one for Uhat's row panel and one for the trailing update a
+  panel step, one matvec a block row a substitution;
 * explicit inverse (``MAX_LANE_N`` < n, at most ``INV_MAX_PANELS``
   panels): the whole inverse from the same panel kernels by the 2x2
   block-Schur identity (:class:`InvFactor`), each solve one batched
@@ -34,7 +35,8 @@ with the others.  Each kernel wrapper dispatches on the device of its
 tensors: on a CUDA tensor it launches the hand-written kernel (and raises
 if that fails); on a CPU tensor it runs the plain torch version of the
 same algorithm (the ``*_ref`` functions).
-``LAUNCHES`` counts the kernel launches, trans=1 substitutions apart.
+``LAUNCHES`` counts the kernel launches, trans=1 substitutions apart;
+``PANEL_PRODUCTS`` the blocked path's batched products and matvecs.
 """
 from __future__ import annotations
 
@@ -57,6 +59,8 @@ GJ_ROWS = 32                     # rows of a panel one CTA of it holds
 GJ_THREADS = 256
 LAUNCHES = {"lu": 0, "solve": 0, "solve_t": 0, "gj_inv_blocked": 0,
             "gj_inv": 0}
+# batched products (factor) and matvecs (solve) of the blocked path
+PANEL_PRODUCTS = {"factor": 0, "solve": 0}
 
 _CT = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -349,14 +353,34 @@ def gj_inv(K):
 # ---------------------------------------------------------------------------
 
 class BlockedFactor(NamedTuple):
-    """Block LU K = Lhat Uhat over PANEL-wide panels: ``blocks[t][s]`` the
-    (B, P, P) off-diagonal blocks (Lhat below, Uhat above the diagonal;
-    Uhat has identity diagonal blocks), ``binv`` (B, T, P, P) the inverses
-    of Lhat's diagonal blocks, ``n`` the unpadded size."""
+    """Block LU K = Lhat Uhat over T PANEL-wide panels, in two buffers:
+    ``lower`` (B, T*P, T*P) holds Lhat's blocks on and below the block
+    diagonal (on it the Schur complement's diagonal panels, of which
+    ``binvs`` holds the T (B, P, P) inverses as the panel kernels made
+    them), ``upper`` (B, (T-1)*P, T*P) Uhat's above it (Uhat has identity
+    diagonal blocks); ``n`` is the unpadded size."""
 
-    blocks: tuple
-    binv: torch.Tensor
+    lower: torch.Tensor
+    upper: torch.Tensor
+    binvs: tuple
     n: int
+
+    @property
+    def binv(self):
+        """The panel inverses as one (B, T, P, P) tensor (a copy)."""
+        return torch.stack(self.binvs, dim=1)
+
+    @property
+    def blocks(self):
+        """The T x T grid of (B, P, P) views: Lhat's blocks on and below
+        the diagonal, Uhat's above it."""
+        T = len(self.binvs)
+        return tuple(tuple((self.lower if s <= t else self.upper)[
+            :, _blk(t), _blk(s)] for s in range(T)) for t in range(T))
+
+
+def _blk(t):
+    return slice(t * PANEL, (t + 1) * PANEL)
 
 
 def _gj_inverse(K, exact=False):
@@ -393,80 +417,126 @@ def _block_inverse(A_, B_, C_, D_, inverse):
                       torch.cat([M21, Sinv], -1)], -2)
 
 
-def _panel_grid(K, what):
+def _padded(K, what):
     """K (B, n, n), n past the lane path, padded to T PANEL-wide panels
-    (identity on the padded diagonal) as the T x T grid of its
-    (B, PANEL, PANEL) blocks."""
+    (identity on the padded diagonal): K itself when n is whole panels,
+    else a new (B, T*PANEL, T*PANEL) tensor."""
     B, n = K.shape[0], K.shape[-1]
     if not blocked_path(n):
         raise ValueError(f"{what} takes n > {MAX_LANE_N}, got {n}")
-    T = _ru(n, PANEL) // PANEL
-    Kp = K
-    if T * PANEL > n:
-        Kp = K.new_zeros((B, T * PANEL, T * PANEL))
-        Kp[:, :n, :n] = K
-        Kp.diagonal(dim1=1, dim2=2)[:, n:] = 1.0
-    return [[Kp[:, t * PANEL:(t + 1) * PANEL, s * PANEL:(s + 1) * PANEL]
-             for s in range(T)] for t in range(T)]
+    N = _ru(n, PANEL)
+    if N == n:
+        return K
+    Kp = K.new_zeros((B, N, N))
+    Kp[:, :n, :n] = K
+    Kp.diagonal(dim1=1, dim2=2)[:, n:] = 1.0
+    return Kp
 
 
-def plu_factor_blocks(K, exact=False):
+def _records(*ts):
+    """Whether autograd records an operation on any of ``ts``: the
+    blocked factor and substitution then take their products out of place,
+    since an in-place update would overwrite tensors saved for the
+    backward."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def plu_factor_blocks(K, exact=False, overwrite=False):
     """Blocked factorization of K (B, n, n), n past the lane path: K padded
-    to a multiple of PANEL (identity on the padded diagonal), then the
-    right-looking block LU.  Returns a :class:`BlockedFactor`."""
+    to T whole panels (identity on the padded diagonal), then the
+    right-looking block LU a panel step at a time.  Step t inverts the
+    diagonal panel of the trailing Schur complement W, forms Uhat's row
+    binv_t W[t, t+1:] as one batched product into ``upper``, and updates
+    W[t+1:, t+1:] -= W[t+1:, t] Uhat[t, t+1:] as one batched product with
+    the subtraction in it, in place: Lhat is what the steps leave of the
+    Schur buffer.  The buffer is K itself when n is whole panels and
+    ``overwrite`` (the caller reads K no more), else a copy; where autograd
+    records through K, every step is out of place.  Returns a
+    :class:`BlockedFactor`."""
     n = K.shape[-1]
-    blk = _panel_grid(K, "plu_factor_blocks")
-    T = len(blk)
+    A = _padded(K, "plu_factor_blocks")
+    B, N = A.shape[0], A.shape[-1]
+    T, P = N // PANEL, PANEL
+    record = _records(A)
+    if record:
+        lower = A.new_empty(A.shape)
+    else:
+        lower = A if A is not K or overwrite else A.clone()
+    upper = A.new_empty((B, N - P, N))
     binvs = []
+    W = A if record else lower
     for t in range(T):
-        binv_t = _gj_inverse(blk[t][t], exact)
+        if record:
+            lower[:, t * P:, _blk(t)] = W[:, :, :P]
+        binv_t = _gj_inverse(W[:, :P, :P], exact)
         binvs.append(binv_t)
-        for s in range(t + 1, T):          # Uhat row: binv_t @ K[t, s]
-            blk[t][s] = binv_t @ blk[t][s]
-        for i in range(t + 1, T):          # trailing update
-            for s in range(t + 1, T):
-                blk[i][s] = blk[i][s] - blk[i][t] @ blk[t][s]
-    return BlockedFactor(tuple(tuple(row) for row in blk),
-                         torch.stack(binvs, dim=1), n)
+        if t + 1 == T:
+            break
+        row, col, trail = W[:, :P, P:], W[:, P:, :P], W[:, P:, P:]
+        U_t = upper[:, _blk(t), (t + 1) * P:]
+        if record:
+            U_row = binv_t @ row
+            U_t[:] = U_row
+            W = torch.baddbmm(trail, col, U_row, alpha=-1)
+        else:
+            torch.bmm(binv_t, row, out=U_t)
+            W = trail.baddbmm_(col, U_t, alpha=-1)
+        bump(PANEL_PRODUCTS, "factor", 2)
+    return BlockedFactor(lower, upper, tuple(binvs), n)
 
 
 def _blocked_solve(fac, r, trans=0):
-    """Block substitution on a :class:`BlockedFactor`: one batched matvec
-    with each diagonal-panel inverse, unit-upper back substitution."""
-    blocks, binv, n = fac
-    T = len(blocks)
-    B = r.shape[0]
-    rp = r.new_zeros((B, T * PANEL))
-    rp[:, :n] = r
-    part = lambda t: rp[:, t * PANEL:(t + 1) * PANEL]
-    mv = lambda M, v: torch.einsum("bij,bj->bi", M, v)
-    mtv = lambda M, v: torch.einsum("bij,bi->bj", M, v)
-    xs = [None] * T
+    """Block substitution on a :class:`BlockedFactor` into one padded
+    vector, a block row at a time: block t of each sweep takes the blocks
+    already known through one batched matvec with its row panel of the
+    factor (its column panel, transposed, for trans=1), the subtraction in
+    the product, and for Lhat one more with its panel inverse.  Where
+    autograd records, every step is out of place and the known blocks are
+    joined for each matvec."""
+    lower, upper, binvs, n = fac
+    B, N = lower.shape[0], lower.shape[-1]
+    T, P = N // PANEL, PANEL
+    inplace = not _records(r, lower, upper, *binvs)
+    v = torch.nn.functional.pad(r, (0, N - n))
+    x = torch.empty_like(v) if inplace else None
+    vs = [v[:, _blk(t)] for t in range(T)]
+    xs = [x[:, _blk(t)] for t in range(T)] if inplace else [None] * T
+
+    def known(buf, parts, lo, hi):         # blocks lo..hi-1 as one vector
+        if inplace:
+            return buf[:, lo * P:hi * P]
+        return torch.cat(parts[lo:hi], -1)
+
+    def sub_mv(acc, M, u):                 # acc - M u
+        bump(PANEL_PRODUCTS, "solve")
+        if inplace:
+            return acc[..., None].baddbmm_(M, u[..., None], alpha=-1)[..., 0]
+        return torch.baddbmm(acc[..., None], M, u[..., None], alpha=-1)[..., 0]
+
+    def inv_mv(t, M):                      # x_t = M v_t
+        bump(PANEL_PRODUCTS, "solve")
+        xs[t] = torch.bmm(M, vs[t][..., None],
+                          out=xs[t][..., None] if inplace else None)[..., 0]
+
     if trans == 0:
-        ys = []
-        for t in range(T):                 # Lhat y = r
-            acc = part(t)
-            for s in range(t):
-                acc = acc - mv(blocks[t][s], ys[s])
-            ys.append(mv(binv[:, t], acc))
-        for t in reversed(range(T)):       # Uhat x = y
-            acc = ys[t]
-            for s in range(t + 1, T):
-                acc = acc - mv(blocks[t][s], xs[s])
-            xs[t] = acc
+        for t in range(T):                 # Lhat y = r, y in x
+            if t:
+                vs[t] = sub_mv(vs[t], lower[:, _blk(t), :t * P],
+                               known(x, xs, 0, t))
+            inv_mv(t, binvs[t])
+        for t in reversed(range(T - 1)):   # Uhat x = y
+            xs[t] = sub_mv(xs[t], upper[:, _blk(t), (t + 1) * P:],
+                           known(x, xs, t + 1, T))
     else:
-        zs = []
-        for t in range(T):                 # Uhat^T z = r
-            acc = part(t)
-            for s in range(t):
-                acc = acc - mtv(blocks[s][t], zs[s])
-            zs.append(acc)
+        for t in range(1, T):              # Uhat^T z = r, z in v
+            vs[t] = sub_mv(vs[t], upper[:, :t * P, _blk(t)].mT,
+                           known(v, vs, 0, t))
         for t in reversed(range(T)):       # Lhat^T x = z
-            acc = zs[t]
-            for s in range(t + 1, T):
-                acc = acc - mtv(blocks[s][t], xs[s])
-            xs[t] = mtv(binv[:, t], acc)
-    return torch.cat(xs, dim=-1)[:, :n]
+            if t + 1 < T:
+                vs[t] = sub_mv(vs[t], lower[:, (t + 1) * P:, _blk(t)].mT,
+                               known(x, xs, t + 1, T))
+            inv_mv(t, binvs[t].mT)
+    return (x if inplace else torch.cat(xs, -1))[:, :n]
 
 
 # ---------------------------------------------------------------------------
@@ -500,11 +570,12 @@ def inv_factor_blocks(K, exact=False):
     if not inv_supported(n):
         raise ValueError(f"inv_factor_blocks takes at most {INV_MAX_PANELS}"
                          f" panels, got n={n}")
-    blk = _panel_grid(K, "inv_factor_blocks")
-    if len(blk) == 1:
-        return InvFactor(_gj_inverse(blk[0][0], exact), n)
-    (A_, B_), (C_, D_) = blk
-    return InvFactor(_block_inverse(A_, B_, C_, D_,
+    A = _padded(K, "inv_factor_blocks")
+    if A.shape[-1] == PANEL:
+        return InvFactor(_gj_inverse(A, exact), n)
+    h, t = _blk(0), _blk(1)
+    return InvFactor(_block_inverse(A[:, h, h], A[:, h, t], A[:, t, h],
+                                    A[:, t, t],
                                     lambda P: _gj_inverse(P, exact)), n)
 
 
@@ -533,16 +604,17 @@ def xla_factor(K):
     return PivotedLU(*torch.linalg.lu_factor(K))
 
 
-def plu_factor(K, exact=False):
+def plu_factor(K, exact=False, overwrite=False):
     """Pivotless LU of K (B, n, n): the lane factor (a (B, n, n) tensor)
     for n <= MAX_LANE_N, the blocked factor (:class:`BlockedFactor`) up to
     MAX_BLOCKED_N.  ``exact`` sends the blocked factor's float32 panel
-    inverses to the scalar kernel."""
+    inverses to the scalar kernel; ``overwrite`` lets the blocked factor
+    keep its Lhat in K's storage (the caller reads K no more)."""
     n = K.shape[-1]
     if K.dim() != 3 or K.shape[-2] != n:
         raise ValueError(f"plu_factor needs (B, n, n) matrices, got {K.shape}")
     if blocked_path(n):
-        return plu_factor_blocks(K, exact)
+        return plu_factor_blocks(K, exact, overwrite)
     return lu_factor(K)
 
 
@@ -557,7 +629,7 @@ def plu_solve(fac, r, trans=0):
         return torch.linalg.lu_solve(fac.lu, fac.pivots, r[..., None],
                                      adjoint=bool(trans))[..., 0]
     if isinstance(fac, (BlockedFactor, InvFactor)):
-        Bf = (fac.binv if isinstance(fac, BlockedFactor) else fac.inv).shape[0]
+        Bf = fac[0].shape[0]   # BlockedFactor.lower, InvFactor.inv
         if fac.n != n or Bf != B:
             raise ValueError(f"{type(fac).__name__} (B={Bf}, n={fac.n}) does "
                              f"not match rhs {(B, n)}")

@@ -15,8 +15,8 @@ from torch_inputs import (CAP_ITERS, DT, GJ_RES_RATIO, ITER_B64, TRAIN_B,
                           engine_instance, engine_iter_case,
                           first_step_lcp, hold_full_f32, hull_grid_start,
                           hull_scene, inv_residual, iter_operands, kkt_batch,
-                          plain_kernels, rel_err, share, ulp, ulp_tensor,
-                          world_rel)
+                          per_block_factor, per_block_solve, plain_kernels,
+                          rel_err, share, ulp, ulp_tensor, world_rel)
 from lcp_physics_tpu_torch.lcp.cone import ConeF
 from lcp_physics_tpu_torch.lcp.pdipm import _dtype_consts, initial_point
 from lcp_physics_tpu_torch.ops import ipm, linalg
@@ -487,6 +487,47 @@ def test_blocked_factor_on_the_card_matches_plain_f64(dev):
         x = linalg.plu_solve(fac, r, trans)
         res = torch.einsum("bij,bj->bi", Kop, x) - r
         assert float(res.abs().max()) <= 1e-9
+
+
+def world_residual(K, x, r, trans):
+    """Per world ||K x - r||_inf / ||r||_inf (K^T for trans=1), in f64."""
+    Kop = K if trans == 0 else K.transpose(1, 2)
+    res = torch.einsum("bij,bj->bi", Kop.double(), x.double()) - r.double()
+    return res.abs().amax(-1) / r.double().abs().amax(-1)
+
+
+@pytest.mark.parametrize("n", [256, 512])
+def test_panel_steps_at_the_training_sizes(dev, n):
+    """The blocked factor a panel step at a time at the training cells'
+    systems, (1024, n) f32 through K4: each solve's residual, the largest
+    and the median over worlds, within 2x of the per-block factor's on the
+    same inputs; (32, n) f64 through K5 within 1e-12 of it."""
+    rng = np.random.default_rng(n + 1)
+    K = torch.tensor(kkt_batch(rng, 1024, n), dtype=torch.float32,
+                     device=dev)
+    r = torch.tensor(rng.standard_normal((1024, n)), dtype=torch.float32,
+                     device=dev)
+    T = n // linalg.PANEL
+    before = dict(linalg.LAUNCHES, **linalg.PANEL_PRODUCTS)
+    fac = linalg.plu_factor(K.clone(), overwrite=True)
+    assert linalg.LAUNCHES["gj_inv_blocked"] - before["gj_inv_blocked"] \
+        == 2 * T
+    assert linalg.PANEL_PRODUCTS["factor"] - before["factor"] == 2 * (T - 1)
+    ref = per_block_factor(K)
+    for trans in (0, 1):
+        got = world_residual(K, linalg.plu_solve(fac, r, trans), r, trans)
+        want = world_residual(K, per_block_solve(ref, r, trans), r, trans)
+        assert float(got.max()) <= 2 * float(want.max())
+        assert float(got.median()) <= 2 * float(want.median())
+    K64 = torch.tensor(kkt_batch(rng, 32, n), device=dev)
+    r64 = torch.tensor(rng.standard_normal((32, n)), device=dev)
+    before = linalg.LAUNCHES["gj_inv"]
+    fac = linalg.plu_factor(K64)
+    assert linalg.LAUNCHES["gj_inv"] - before == T
+    ref = per_block_factor(K64)
+    for trans in (0, 1):
+        assert rel_err(linalg.plu_solve(fac, r64, trans),
+                       per_block_solve(ref, r64, trans)) <= 1e-12
 
 
 @pytest.mark.parametrize("dtype,lims", [

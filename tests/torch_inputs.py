@@ -432,14 +432,83 @@ def counted_factors(panels):
     from lcp_physics_tpu_torch.ops import linalg
     orig = linalg.plu_factor_blocks
 
-    def counted(K, exact=False):
+    def counted(K, *args, **kw):
         panels.append(-(-K.shape[-1] // linalg.PANEL))
-        return orig(K, exact)
+        return orig(K, *args, **kw)
     linalg.plu_factor_blocks = counted
     try:
         yield
     finally:
         linalg.plu_factor_blocks = orig
+
+
+def per_block_factor(K, exact=False):
+    """The blocked factor a 128 x 128 block at a time, as the port first
+    computed it: K padded to T panels, then per panel step the panel
+    inverse, one product per Uhat block and one product and one
+    subtraction per trailing block.  Returns (blocks, binv, n): the T x T
+    grid of blocks (Lhat below the diagonal, Uhat above, the Schur
+    complement's diagonal panels on it) and the (B, T, P, P) inverses."""
+    from lcp_physics_tpu_torch.ops import linalg
+    P = linalg.PANEL
+    B, n = K.shape[0], K.shape[-1]
+    T = -(-n // P)
+    Kp = K
+    if T * P > n:
+        Kp = K.new_zeros((B, T * P, T * P))
+        Kp[:, :n, :n] = K
+        Kp.diagonal(dim1=1, dim2=2)[:, n:] = 1.0
+    blk = [[Kp[:, t * P:(t + 1) * P, s * P:(s + 1) * P] for s in range(T)]
+           for t in range(T)]
+    binvs = []
+    for t in range(T):
+        binv_t = linalg._gj_inverse(blk[t][t], exact)
+        binvs.append(binv_t)
+        for s in range(t + 1, T):          # Uhat row: binv_t @ K[t, s]
+            blk[t][s] = binv_t @ blk[t][s]
+        for i in range(t + 1, T):          # trailing update
+            for s in range(t + 1, T):
+                blk[i][s] = blk[i][s] - blk[i][t] @ blk[t][s]
+    return blk, torch.stack(binvs, dim=1), n
+
+
+def per_block_solve(fac, r, trans=0):
+    """Block substitution on :func:`per_block_factor`'s result, one
+    batched matvec and one subtraction per block."""
+    from lcp_physics_tpu_torch.ops import linalg
+    blocks, binv, n = fac
+    T, P = len(blocks), linalg.PANEL
+    rp = r.new_zeros((r.shape[0], T * P))
+    rp[:, :n] = r
+    part = lambda t: rp[:, t * P:(t + 1) * P]
+    mv = lambda M, v: torch.einsum("bij,bj->bi", M, v)
+    mtv = lambda M, v: torch.einsum("bij,bi->bj", M, v)
+    xs = [None] * T
+    if trans == 0:
+        ys = []
+        for t in range(T):                 # Lhat y = r
+            acc = part(t)
+            for s in range(t):
+                acc = acc - mv(blocks[t][s], ys[s])
+            ys.append(mv(binv[:, t], acc))
+        for t in reversed(range(T)):       # Uhat x = y
+            acc = ys[t]
+            for s in range(t + 1, T):
+                acc = acc - mv(blocks[t][s], xs[s])
+            xs[t] = acc
+    else:
+        zs = []
+        for t in range(T):                 # Uhat^T z = r
+            acc = part(t)
+            for s in range(t):
+                acc = acc - mtv(blocks[s][t], zs[s])
+            zs.append(acc)
+        for t in reversed(range(T)):       # Lhat^T x = z
+            acc = zs[t]
+            for s in range(t + 1, T):
+                acc = acc - mtv(blocks[s][t], xs[s])
+            xs[t] = mtv(binv[:, t], acc)
+    return torch.cat(xs, dim=-1)[:, :n]
 
 
 def sharded_rollout(static, cfg, params, state, steps, mesh, dev):

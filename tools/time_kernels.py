@@ -19,7 +19,11 @@ their own (keys ``*_own``; "none" for a tree whose kernels take no such
 start);
 K4 on (256, 64, 64) f32 panels; K5 on (32, 128, 128) f64 panels and on
 (256, 128, 128) f32 (``exact``, key ``gj_inv_f32``); K6 on the
-dense scene's first-step LCP (B = 256, f32).  The input generators are this
+dense scene's first-step LCP (B = 256, f32); and the blocked factor with
+a solve pair (keys ``blocked_256`` and ``blocked_512``: a copy of K into
+the buffer the factor takes over, the factor through K4, a solve at trans
+0 and 1) on (1024, 256, 256) and (1024, 512, 512) f32 KKT matrices, the
+training cells' systems.  The input generators are this
 tree's ``tests/torch_inputs.py``; the kernels are those of the tree given by
 ``--root`` (default: this one), built into that tree at first use.
 ``--turns`` runs each tree in a process of its own and prints one line per
@@ -28,8 +32,10 @@ kernel with the four times and, last, a JSON object of them.
 ``--kernels`` prints the card's name and power limit, then one JSON line
 ``{"kernels": [...], "launches": {...}}``: for each kernel of the kernel
 table (K1, K2 at trans 0 and 1, K3, K3u, K4, K5 and K6, at the shapes
-above, K3/K3u from the given start) its device ms, ``plain_ms`` (its plain
-torch version), ``library_ms`` (one PyTorch call computing the same
+above, K3/K3u from the given start, and the blocked factor with its
+solve pair) its device ms, ``plain_ms`` (its plain torch version; for the
+blocked factor the per-block transcription of the tests, through the same
+panel kernel), ``library_ms`` (one PyTorch call computing the same
 function, where there is one), ``bound_ms`` and ``bound_by`` (the call's
 bytes, each read or written once, at the card's published bandwidth, or
 its operations at the published FLOP/s, whichever is longer), ``x_bound``
@@ -57,10 +63,13 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LU_SHAPES = (("", 4096, 16, False), ("_24", 4096, 24, False),
              ("_56_f64", 256, 56, True), ("_88", 4096, 88, False),
              ("_88_f64", 4096, 88, True))
+# worlds and rows of the blocked factor's shapes (the training cells' K2)
+BLOCKED_SHAPES = ((1024, 256), (1024, 512))
 NAMES = tuple(k + sfx for sfx, *_ in LU_SHAPES
               for k in ("lu", "solve", "solve_t")) + (
     "fused_ipm", "fused_ipm_unrot", "fused_ipm_own", "fused_ipm_unrot_own",
-    "gj_inv_blocked", "gj_inv", "gj_inv_f32", "ipm_iter")
+    "gj_inv_blocked", "gj_inv", "gj_inv_f32", "ipm_iter") + tuple(
+    f"blocked_{n}" for _, n in BLOCKED_SHAPES)
 # the kernel table's rows: the key of each kernel's path shape, and the shape
 TABLE = {"lu": "(4096, 16, 16) f32", "solve": "(4096, 16) f32",
          "solve_t": "(4096, 16) f32",
@@ -68,7 +77,9 @@ TABLE = {"lu": "(4096, 16, 16) f32", "solve": "(4096, 16) f32",
          "fused_ipm_unrot": "4096 worlds, n = 24, C = 8, K = 24, f32",
          "gj_inv_blocked": "(256, 64, 64) f32",
          "gj_inv": "(32, 128, 128) f64",
-         "ipm_iter": "the dense first step, B = 256, K2 = 256, f32"}
+         "ipm_iter": "the dense first step, B = 256, K2 = 256, f32",
+         **{f"blocked_{n}": f"({B}, {n}, {n}) f32, a factor and two solves"
+            for B, n in BLOCKED_SHAPES}}
 # The H100 SXM's published peaks (NVIDIA's data sheet; full 700 W power
 # limit): HBM3 bytes/s, and the highest FLOP/s for each item size without
 # reduced precision: float32 outside the tensor cores, float64 on them.
@@ -161,6 +172,22 @@ def iter_bound(inv, vecs, X):
     return bound(moved, B * (4 * K2 * K2 + 8 * K2 * n), it)
 
 
+def blocked_bound(B, n, itemsize):
+    """The blocked factor and a solve pair's bound, T = n / 128 panels of
+    P = 128: the panel inverses (2P^3 each) and the 128^3 products (2P^3
+    each: sum (T-1-t) for Uhat's rows, sum (T-1-t)^2 for the trailing
+    updates) at the card's FLOP/s, or its bytes at its bandwidth, K read
+    and the factor (n x n and the T inverses) written once, each solve
+    reading the factor and r and writing x once."""
+    P = 128
+    T = n // P
+    blocks = sum(T - 1 - t + (T - 1 - t) ** 2 for t in range(T))
+    flops = B * 2 * P ** 3 * (T + blocks)
+    factor = B * (n * n + T * P * P) * itemsize
+    moved = B * n * n * itemsize + factor + 2 * (factor + 2 * B * n * itemsize)
+    return bound(moved, flops, itemsize)
+
+
 def cases(torch, cs, dev):
     """(key, fn, more) for every kernel at its path's shape: fn() one call
     of the kernel (None for a tree without it), more() for a row of the
@@ -229,6 +256,32 @@ def cases(torch, cs, dev):
             plain=lambda: getattr(linalg, f + "_ref")(Pn),
             library=lambda: torch.linalg.inv(Pn),
             **bound(2 * nbytes(Pn), Bp * 2 * P ** 3, Pn.element_size()))
+    for B, n in BLOCKED_SHAPES:
+        K = torch.tensor(cs.kkt_batch(rng, B, n), dtype=f32, device=dev)
+        r = torch.tensor(rng.standard_normal((B, n)), dtype=f32, device=dev)
+        Kw = torch.empty_like(K)
+        try:   # the solver's call: its Schur matrix becomes the factor
+            linalg.plu_factor(Kw.copy_(K), overwrite=True)
+            factor = lambda: linalg.plu_factor(Kw, overwrite=True)
+        except TypeError:   # a tree whose factor takes no ``overwrite``
+            factor = lambda: linalg.plu_factor(Kw)
+
+        def blocked():
+            Kw.copy_(K)
+            fac = factor()
+            return linalg.plu_solve(fac, r, 0), linalg.plu_solve(fac, r, 1)
+
+        def per_block():   # the factor a 128 x 128 block at a time
+            fac = cs.per_block_factor(K)
+            return cs.per_block_solve(fac, r, 0), cs.per_block_solve(fac, r, 1)
+
+        def library():
+            lu = torch.linalg.lu_factor(K)
+            return (torch.linalg.lu_solve(*lu, r[..., None]),
+                    torch.linalg.lu_solve(*lu, r[..., None], adjoint=True))
+        yield f"blocked_{n}", blocked, lambda: dict(
+            plain=per_block, library=library,
+            **blocked_bound(B, n, K.element_size()))
     lcp = cs.first_step_lcp(torch, dev, f32, 256, 1)
     vecs, X0, fac, consts = cs.iter_operands(torch, lcp)
     n, m = vecs[2].shape[1], 4 * lcp["F"].C
@@ -325,7 +378,7 @@ def table(torch, cs, dev):
             name=key, shape=TABLE[key], ms=ms, plain_ms=cuda_ms(torch, plain),
             library_ms=None if lib is None else cuda_ms(torch, lib),
             **m, x_bound=ms / m["bound_ms"],
-            launches=sum(c[key] for c in launches.values())))
+            launches=sum(c.get(key, 0) for c in launches.values())))
     return dict(kernels=rows, launches=launches)
 
 
