@@ -1,13 +1,18 @@
 """The one generator of every traffic mix: worlds drawn per world from the
 seed, as a traffic file's ``scene`` describes them.
 
-The scene's ``kind`` names the draw of the bodies' centres,
-``scenes/<kind>.py`` (``grid``, ``scatter``); velocities are
-normal(0, ``vel_std``) per world and body (zero when ``vel_std`` is 0)
-and angles start at 0, whatever the kind.  All draws of a run come from one
+The scene's ``kind`` names the module of its draw, ``scenes/<kind>.py``
+(``grid``, ``scatter``): ``positions(scene, shape, rng, config)``, the
+bodies' centres, drawn for the configuration the worlds are made for.
+Velocities are normal(0, ``vel_std``) per world and body (zero when
+``vel_std`` is 0); a kind that sets some bodies' velocities otherwise
+(bodies at rest, a speed added) defines ``velocities(scene, v, config)``,
+which changes the drawn velocities without drawing more.  Angles start at
+0, whatever the kind.  All draws of a run come from one
 ``numpy.random.default_rng(seed)`` in a fixed order (positions of every
 batch, then velocities, then any per-world guesses), so a seed gives the
-same worlds on every machine; any whole number is a seed.
+same worlds on every machine; any whole number is a seed.  A kind may
+also define ``tiny(scene)``, the scene at the tests' CPU size.
 """
 from __future__ import annotations
 
@@ -16,15 +21,19 @@ import numpy as np
 from benchmark.harness import spec
 
 
-def worlds(scene, batches, B, N, rng):
-    """(p, v), each (batches, B, N, 3) float32, of ``scene``."""
-    shape = (batches, B, N)
-    pos = spec.plugin("scenes", scene["kind"]).positions(scene, shape, rng)
+def worlds(scene, batches, config, rng):
+    """(p, v), each (batches, B, N, 3) float32, of ``scene`` for the
+    configuration ``config`` (its ``worlds`` B and ``bodies`` N)."""
+    kind = spec.plugin("scenes", scene["kind"])
+    shape = (batches, config["worlds"], config["bodies"])
+    pos = kind.positions(scene, shape, rng, config)
     std = scene["vel_std"]
     if std > 0:
         v = rng.normal(0, std, shape + (3,)).astype(np.float32)
     else:
         v = np.zeros(shape + (3,), np.float32)
+    if hasattr(kind, "velocities"):
+        v = kind.velocities(scene, v, config).astype(np.float32)
     p = np.concatenate([np.zeros(shape + (1,)), pos], -1).astype(np.float32)
     return p, v
 
@@ -42,7 +51,7 @@ def draw(traffic, config, seed):
     rng = np.random.default_rng(seed)
     out = {}
     out["p"], out["v"] = worlds(traffic["scene"], traffic["batches"],
-                                config["worlds"], config["bodies"], rng)
+                                config, rng)
     if "guess" in traffic:
         out["guess"] = guesses(traffic["guess"], config["worlds"],
                                config["bodies"], rng)

@@ -12,8 +12,9 @@ import dataclasses
 import torch
 
 from benchmark.harness import spec
-from lcp_physics_tpu_torch.core import (WorldState, default_params,
-                                        make_scene_static, rollout)
+from lcp_physics_tpu_torch.core import (JointSpec, WorldState,
+                                        default_params, make_scene_static,
+                                        rollout)
 from lcp_physics_tpu_torch.core import step as step_mod
 from lcp_physics_tpu_torch.lcp import lcp_solve, lcp_solve_full, pdipm
 from lcp_physics_tpu_torch.lcp.cone import ConeF
@@ -22,8 +23,9 @@ from lcp_physics_tpu_torch.parallel import make_batched_step
 from lcp_physics_tpu_torch.utils import SimConfig
 
 __all__ = ["WorldState", "rollout", "lcp_solve", "lcp_solve_full", "ConeF",
-           "make_scene_static", "default_params", "scene", "sim_config",
-           "batched_step", "batch_params", "build", "counters"]
+           "make_scene_static", "default_params", "scene", "joints",
+           "sim_config", "batched_step", "batch_params", "build",
+           "counters"]
 
 DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
@@ -32,6 +34,16 @@ def scene(config, device):
     """(static, params) of the configuration's worlds, built by the module
     of its body shape, ``shapes/<shape>.py``."""
     return spec.plugin("shapes", config["shape"]).scene(config, device)
+
+
+def joints(config):
+    """The port's ``JointSpec`` of each entry of the configuration's
+    ``joints`` (none where it has no such key), for
+    ``make_scene_static(joints=...)``; ``reference/joints.py`` builds the
+    reference's rows from the same entries."""
+    return tuple(JointSpec(**{k: tuple(v) if isinstance(v, list) else v
+                              for k, v in entry.items()})
+                 for entry in config.get("joints", ()))
 
 
 def sim_config(config):

@@ -1,4 +1,5 @@
-"""Circles: every pair of circles is a candidate; a pair is a contact
+"""Circles: every pair of circles is a candidate (or the pairs that the
+world's ``pairs`` lists, as a jointed world's are); a pair is a contact
 while its gap is under the sum of both bodies' speculative margins,
 dt (|v| + |omega| r + dt |g|) + 10 tol, and their margin-inflated boxes
 overlap; past ``c_max`` candidates the deepest ``c_max`` are kept."""
@@ -42,7 +43,7 @@ def contacts(world, p, v, dt):
     radius = radius.expand(B, -1) if radius.dim() == 1 else radius
     margin = margins(v, radius, world["gravity"], dt)
     c_max = world["c_max"]
-    iu, ju = np.triu_indices(N, 1)
+    iu, ju = world["pairs"] if "pairs" in world else np.triu_indices(N, 1)
     ia = torch.as_tensor(iu, device=p.device)
     ib = torch.as_tensor(ju, device=p.device)
     pos = p[..., 1:3]

@@ -2,9 +2,11 @@
 
 A batch of worlds holds N bodies each, of the shape that the world's
 ``shape`` names; its narrowphase (``reference/shapes/<shape>.py``) gives
-the contacts.  A world holds positions p (B, N, 3) = [angle,
-x, y], velocities v (B, N, 3) = [omega, vx, vy] and per-body mass,
-inertia, restitution and friction ((N,) shared or (B, N) per world).
+the contacts and, where the module defines ``equality(world, p)``, the
+equality rows A v = b of the world's joints (``reference/joints.py``).
+A world holds positions p (B, N, 3) = [angle, x, y], velocities v
+(B, N, 3) = [omega, vx, vy] and per-body mass, inertia, restitution and
+friction ((N,) shared or (B, N) per world).
 The contact model is the engine's (Stewart-Trinkle / Anitescu-Potra at
 the velocity level):
 
@@ -15,6 +17,7 @@ the velocity level):
 * h on a normal row: restitution e (Jc v) with e the mean of the two
   bodies' restitution, where the contact touches or would close its gap
   this step, else gap / dt; padded rows get zero rows, h = 1 and mask 0;
+* the equality rows, where the shape has any, go to the LCP as A and b;
 * the LCP's z is the new velocity and p' = p + dt z.
 
 A batch here is any set of worlds: each world's rows depend on that world
@@ -79,17 +82,18 @@ def cone(mu, valid):
 def blocks(world, p, v, dt):
     """The contact LCP of one step of every world: a dict of Q (diagonal,
     (B, 3N)), p, G, h, F (dense), row_mask, the cone's mu and valid mask
-    (B, C) and the number of valid contacts a world.  ``world`` holds
-    its shape, mass, inertia, restitution, fric_coeff and the shape's
-    own sizes ((N,) or (B, N)), gravity (2,) and c_max."""
+    (B, C) and the number of valid contacts a world, and A (B, q, 3N) and
+    b (B, q) where the shape module defines ``equality``.  ``world``
+    holds its shape, mass, inertia, restitution, fric_coeff and the
+    shape's own sizes ((N,) or (B, N)), gravity (2,) and c_max."""
     B, N = p.shape[:2]
     mass = as_batch(world["mass"], B)
     rest = as_batch(world["restitution"], B)
     fric = as_batch(world["fric_coeff"], B)
     inertia = as_batch(world["inertia"], B)
     g = world["gravity"]
-    normal, ra, rb, depth, ia, ib, valid = shape(world["shape"]).contacts(
-        world, p, v, dt)
+    body = shape(world["shape"])
+    normal, ra, rb, depth, ia, ib, valid = body.contacts(world, p, v, dt)
     mask = valid.to(p.dtype)
     Mdiag = torch.stack([inertia, mass, mass], -1).reshape(B, 3 * N)
     f = torch.zeros_like(p)
@@ -110,12 +114,15 @@ def blocks(world, p, v, dt):
     h_n = torch.where(valid, torch.where(hit, e * jcv, gap / dt), 1.0)
     h_f = torch.where(valid.repeat(1, FRIC_DIRS), 0.0, 1.0).to(p.dtype)
     h_g = torch.where(valid, 0.0, 1.0).to(p.dtype)
-    return dict(Q=Mdiag, p=-u,
-                G=torch.cat([-Jc, -Jf, torch.zeros_like(Jc)], 1),
-                h=torch.cat([h_n, h_f, h_g], -1), F=cone(mu, mask),
-                row_mask=torch.cat([mask, mask.repeat(1, FRIC_DIRS), mask],
-                                   -1),
-                mu=mu, valid=mask, n_contacts=valid.sum(-1))
+    out = dict(Q=Mdiag, p=-u,
+               G=torch.cat([-Jc, -Jf, torch.zeros_like(Jc)], 1),
+               h=torch.cat([h_n, h_f, h_g], -1), F=cone(mu, mask),
+               row_mask=torch.cat([mask, mask.repeat(1, FRIC_DIRS), mask],
+                                  -1),
+               mu=mu, valid=mask, n_contacts=valid.sum(-1))
+    if hasattr(body, "equality"):
+        out["A"], out["b"] = body.equality(world, p)
+    return out
 
 
 def step(world, p, v, dt, solver):
@@ -124,7 +131,8 @@ def step(world, p, v, dt, solver):
     B, N = p.shape[:2]
     blk = blocks(world, p, v, dt)
     z = lcp.lcp_solve(blk["Q"], blk["p"], blk["G"], blk["h"], blk["F"],
-                      blk["row_mask"], **solver)
+                      blk["row_mask"], A=blk.get("A"), b=blk.get("b"),
+                      **solver)
     v_new = z.reshape(B, N, 3)
     return p + dt * v_new, v_new
 

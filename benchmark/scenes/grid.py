@@ -5,7 +5,7 @@ world instead of one world tiled)."""
 import numpy as np
 
 
-def positions(scene, shape, rng):
+def positions(scene, shape, rng, config):
     """Centres (shape + (2,)) of ``shape`` = (batches, B, N) bodies."""
     rows, cols = scene["rows"], scene["cols"]
     if rows * cols != shape[-1]:
@@ -14,3 +14,9 @@ def positions(scene, shape, rng):
     grid = np.stack([gx.ravel(), gy.ravel()], -1) * scene["spacing"]
     j = scene["jitter"]
     return grid + rng.uniform(-j, j, tuple(shape) + (2,))
+
+
+def tiny(scene):
+    """The grid at the tests' CPU size: 4 x 4 of the same bodies, so a
+    grid configuration's test size has 16 bodies."""
+    return dict(scene, rows=4, cols=4)

@@ -4,7 +4,7 @@ batch)."""
 import numpy as np
 
 
-def positions(scene, shape, rng):
+def positions(scene, shape, rng, config):
     """Centres (shape + (2,)) of ``shape`` = (batches, B, N) bodies."""
     return rng.uniform(0, scene["extent"], tuple(shape) + (2,)).astype(
         np.float32)

@@ -4,8 +4,9 @@ benchmark keeps while ``BENCHMARK.json`` leaves it out (PERF.md).
 
 A configuration's test size is ``tests/tiny/<config>.json``, found by the
 configuration's name as ``spec.plugin`` finds code by name: the entries of
-the configuration file that the tests replace.  A grid scene is cut to
-4 x 4, so a tiny grid configuration has 16 bodies."""
+the configuration file that the tests replace.  A scene kind that has a
+test size of its own gives it (``scenes/<kind>.py``'s ``tiny``: the grid
+is cut to 4 x 4, so a tiny grid configuration has 16 bodies)."""
 import copy
 
 from benchmark.harness import spec
@@ -70,12 +71,15 @@ def tiny_config(name):
 
 def tiny(cell):
     """Overrides that shrink a cell to a CPU test's size: the
-    configuration's ``tiny/<config>.json``, at most two batches, a 4 x 4
-    grid of the same bodies, the loop's short run and small sample."""
+    configuration's ``tiny/<config>.json``, at most two batches, the
+    scene's own test size where its kind has one, the loop's short run
+    and small sample."""
     c = spec.cell(cell, bench())
     traffic = {"batches": min(2, c.traffic["batches"])}
-    if "scene" in c.traffic and c.traffic["scene"]["kind"] == "grid":
-        traffic["scene"] = dict(c.traffic["scene"], rows=4, cols=4)
+    if "scene" in c.traffic:
+        kind = spec.plugin("scenes", c.traffic["scene"]["kind"])
+        if hasattr(kind, "tiny"):
+            traffic["scene"] = kind.tiny(c.traffic["scene"])
     traffic.update(copy.deepcopy(LOOP_TINY[c.traffic["loop"]]))
     return {"config": tiny_config(c.config["name"]), "traffic": traffic}
 

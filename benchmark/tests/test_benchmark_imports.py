@@ -11,7 +11,7 @@ import benchmark.run, benchmark.harness.check, benchmark.harness.timeline
 import benchmark.harness.readers, benchmark.harness.program
 from benchmark.harness import spec
 import benchmark.reference.lcp, benchmark.reference.world
-import benchmark.reference.train
+import benchmark.reference.train, benchmark.reference.joints
 for folder in ("loops", "scenes", "shapes", "metrics"):
     for path in sorted((spec.HERE / folder).glob("*.py")):
         spec.plugin(folder, path.stem)
@@ -24,7 +24,7 @@ print(sorted({m.split(".")[0] for m in sys.modules}))
 REFERENCE = """
 import importlib, pathlib, sys
 import benchmark.reference.lcp, benchmark.reference.world
-import benchmark.reference.train
+import benchmark.reference.train, benchmark.reference.joints
 here = pathlib.Path(benchmark.reference.__file__).parent / "shapes"
 for path in sorted(here.glob("*.py")):
     importlib.import_module("benchmark.reference.shapes." + path.stem)
@@ -52,6 +52,6 @@ def test_reference_loads_nothing_of_the_program():
     ours = _top_levels(REFERENCE.replace(
         "m.split(\".\")[0] for m in sys.modules",
         "m for m in sys.modules if m.startswith(\"benchmark\")"))
-    assert {"benchmark.reference.lcp",
+    assert {"benchmark.reference.lcp", "benchmark.reference.joints",
             "benchmark.reference.shapes.circle"} <= ours
     assert not [m for m in ours if m.startswith("benchmark.harness")]

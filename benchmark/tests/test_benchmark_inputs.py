@@ -6,6 +6,7 @@ import torch
 
 from benchmark.harness import generate, program, spec
 from benchmark.reference import world as ref_world
+from benchmark.tests import helpers
 from benchmark.tests.helpers import configs, tiny_cell
 from lcp_physics_tpu_torch.core import WorldState, make_assemble
 from lcp_physics_tpu_torch.tools import bench
@@ -14,15 +15,25 @@ from lcp_physics_tpu_torch.utils import SimConfig
 BIG_SEED = 2 ** 31 + 12345
 
 
-MIXES = sorted(p.stem for p in (spec.HERE / "traffic").glob("*.json"))
+def _first_cells():
+    """Each traffic mix of the cells the tests run and its first cell, by
+    the mix's name."""
+    first = {}
+    for w in helpers.bench()["workloads"]:
+        first.setdefault(w["traffic"], w["name"])
+    return dict(sorted(first.items()))
 
 
-@pytest.mark.parametrize("mix", MIXES)
+MIXES = _first_cells()
+
+
+@pytest.mark.parametrize("mix", list(MIXES))
 def test_draws_repeat_for_a_seed_and_differ_across_worlds(mix):
-    traffic = spec.load_json(spec.HERE / "traffic" / f"{mix}.json")
-    scene = traffic["scene"]
-    conf = {"worlds": 8, "bodies": scene["rows"] * scene["cols"]
-            if scene["kind"] == "grid" else 8}
+    """Each mix drawn for the configuration of its first cell, at 8
+    worlds."""
+    c = spec.cell(MIXES[mix], helpers.bench())
+    traffic = c.traffic
+    conf = dict(c.config, worlds=8)
     a = generate.draw(traffic, conf, BIG_SEED)
     b = generate.draw(traffic, conf, BIG_SEED)
     c = generate.draw(traffic, conf, BIG_SEED + 1)
@@ -66,7 +77,8 @@ def test_reference_assembly_equals_make_assemble(conf_name):
     shape builds it (``program.scene``), the reference's bodies from the
     configuration (``ref_world.params``), at the configuration's tiny size
     (the grid at 4 x 4 with 32 slots, so that the deepest-contact
-    compaction runs) and 5 worlds."""
+    compaction runs) and 5 worlds; a jointed configuration's equality
+    rows A and b besides."""
     c = tiny_cell(configs()[conf_name])
     conf = dict(c.config, worlds=5, dtype="float64")
     traffic = dict(c.traffic, batches=1)
@@ -81,7 +93,9 @@ def test_reference_assembly_equals_make_assemble(conf_name):
                        torch.full((5,), dt, dtype=f64))
     ref = ref_world.blocks(ref_world.params(conf, f64, "cpu"), p, v, dt)
     assert int(ref["n_contacts"].sum()) > 0
-    for k in ("Q", "p", "G", "h", "row_mask"):
+    assert ("A" in ref) == (port["A"].shape[-2] > 0)
+    for k in ("Q", "p", "G", "h", "row_mask") + (("A", "b") if "A" in ref
+                                                  else ()):
         torch.testing.assert_close(ref[k], port[k], rtol=0, atol=1e-12)
     torch.testing.assert_close(ref["F"], port["F"].dense(), rtol=0,
                                atol=1e-12)

@@ -62,13 +62,13 @@ def test_lcp_solve_agrees_with_the_port(cell):
         blk["Q"], blk["p"], blk["G"], blk["h"], None, None,
         program.ConeF(blk["mu"], blk["valid"], 2), row_mask=blk["row_mask"],
         gamma_rows=conf["c_max"], q_is_diag=True, **lcp)
-    z, _, _, iters = ref_lcp.solve(
+    ref = ref_lcp.solve(
         blk["Q"], blk["p"], blk["G"], blk["h"], blk["F"], blk["row_mask"],
         max_iter=lcp["max_iter"], tol=lcp["tol"],
         stall_lim=lcp["not_improved_lim"], solver_dtype=F64)
     assert int(blk["n_contacts"].sum()) > 0
-    torch.testing.assert_close(z, sol.z, rtol=0, atol=1e-9)
-    assert np.mean(iters.numpy() == sol.iters.numpy()) >= 0.9
+    torch.testing.assert_close(ref.z, sol.z, rtol=0, atol=1e-9)
+    assert np.mean(ref.iters.numpy() == sol.iters.numpy()) >= 0.9
 
 
 @pytest.mark.parametrize("cell", cells("train"))
