@@ -26,7 +26,9 @@ with its stages ``step.narrowphase``, ``step.assemble``,
 Inside ``step.narrowphase``, ``find_contacts`` opens
 ``step.narrowphase.hull`` around the hull/hull pairs and
 ``step.narrowphase.compact`` around the compaction, which runs only when
-the candidate rows exceed ``c_max``.
+the candidate rows exceed ``c_max``.  In a scene with joints the
+equality rows (``assemble_Je``) are ``step.assemble.joints``, inside
+``step.assemble`` (inside ``step.integrate`` for post-stabilization's).
 
 The step is differentiable end to end: gradients pass through the
 narrowphase, the contact compaction (a gather) and the assembly as plain
@@ -114,6 +116,15 @@ def _take(x, idx):
     return x[idx] if x.dim() == 1 else x.gather(-1, idx)
 
 
+def _joint_rows(static: SceneStatic, p):
+    """``assemble_Je(static, p)``, inside the span
+    ``step.assemble.joints`` where the scene has joints."""
+    if not static.joints:
+        return assemble_Je(static, p)
+    with span("step.assemble.joints"):
+        return assemble_Je(static, p)
+
+
 def make_assemble(static: SceneStatic, config: SimConfig):
     """Batched LCP block assembly.  Returns ``(assemble,
     assemble_post_stab)``: ``assemble(params, states, dt_w) -> (blocks,
@@ -135,7 +146,7 @@ def make_assemble(static: SceneStatic, config: SimConfig):
         v = states.v.reshape(B, -1)
         f = total_force(static, params, states).reshape(B, -1)
         u = Mdiag * v + dt_w[:, None] * f
-        Je = assemble_Je(static, states.p)
+        Je = _joint_rows(static, states.p)
         b_eq = torch.zeros(Je.shape[:2], dtype=u.dtype, device=u.device)
         return dict(Q=Mdiag, p=-u, A=Je, b=b_eq)
 
@@ -222,7 +233,7 @@ def make_assemble(static: SceneStatic, config: SimConfig):
         B = p.shape[0]
         opts = dict(dtype=p.dtype, device=p.device)
         Mdiag = generalized_mass(params).expand(B, 3 * N)
-        Je = assemble_Je(static, p)
+        Je = _joint_rows(static, p)
         err = constraint_position_error(static, p)
         zero_p = torch.zeros((B, 3 * N), **opts)
         if C == 0:

@@ -35,7 +35,10 @@ with the others.  Each kernel wrapper dispatches on the device of its
 tensors: on a CUDA tensor it launches the hand-written kernel (and raises
 if that fails); on a CPU tensor it runs the plain torch version of the
 same algorithm (the ``*_ref`` functions).
-``LAUNCHES`` counts the kernel launches, trans=1 substitutions apart;
+``LAUNCHES`` counts the kernel launches, trans=1 substitutions apart,
+and under ``"pad"`` the padded copies of ``_padded``: one a system that
+is not whole panels, copied into a new buffer, on any device (the
+benchmark reads the launch counters as ``launches.<key>``);
 ``PANEL_PRODUCTS`` the blocked path's batched products and matvecs.
 """
 from __future__ import annotations
@@ -58,7 +61,7 @@ GJ_BUCKETS = (32, 64, 96, 128)   # csrc/gj_inv.cu's scalar kernel sizes
 GJ_ROWS = 32                     # rows of a panel one CTA of it holds
 GJ_THREADS = 256
 LAUNCHES = {"lu": 0, "solve": 0, "solve_t": 0, "gj_inv_blocked": 0,
-            "gj_inv": 0}
+            "gj_inv": 0, "pad": 0}
 # batched products (factor) and matvecs (solve) of the blocked path
 PANEL_PRODUCTS = {"factor": 0, "solve": 0}
 
@@ -420,13 +423,15 @@ def _block_inverse(A_, B_, C_, D_, inverse):
 def _padded(K, what):
     """K (B, n, n), n past the lane path, padded to T PANEL-wide panels
     (identity on the padded diagonal): K itself when n is whole panels,
-    else a new (B, T*PANEL, T*PANEL) tensor."""
+    else a new (B, T*PANEL, T*PANEL) tensor, counted in
+    ``LAUNCHES["pad"]``."""
     B, n = K.shape[0], K.shape[-1]
     if not blocked_path(n):
         raise ValueError(f"{what} takes n > {MAX_LANE_N}, got {n}")
     N = _ru(n, PANEL)
     if N == n:
         return K
+    bump(LAUNCHES, "pad")
     Kp = K.new_zeros((B, N, N))
     Kp[:, :n, :n] = K
     Kp.diagonal(dim1=1, dim2=2)[:, n:] = 1.0

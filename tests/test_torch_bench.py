@@ -315,7 +315,8 @@ ALL_ROWS = [*TB.ROWS, *TB.SCALE_ROWS]
 @pytest.mark.parametrize("name", ALL_ROWS)
 def test_every_row_runs_on_the_cpu(name):
     """Each row at B = 2, 1 step, 1 call in 1 window on the CPU: a finite,
-    positive rate; no launches (plain versions) and no event time."""
+    positive rate; no kernel launches (plain versions; the joint row's
+    289-row system counts its padded copies) and no event time."""
     kw = dict(B=2, calls=1, windows=1)
     if name != "lcp":
         kw["n_steps"] = 1
@@ -324,7 +325,7 @@ def test_every_row_runs_on_the_cpu(name):
     rec = TB.run_row(name, "cpu", **kw)
     assert rec["row"] == name
     assert np.isfinite(rec["rate"]) and rec["rate"] > 0
-    assert rec["launches"] == {} and rec["event_ms"] is None
+    assert set(rec["launches"]) <= {"pad"} and rec["event_ms"] is None
     assert rec["line"].startswith("[bench] ")
 
 

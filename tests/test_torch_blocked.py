@@ -2,8 +2,8 @@
 per-block transcription (``torch_inputs.per_block_factor`` and
 ``per_block_solve``, one product and one subtraction per 128 x 128
 block), f64 on the CPU: the blocks and panel inverses, both solves, the
-count of batched products and matvecs (``linalg.PANEL_PRODUCTS``), the
-input left whole where the caller keeps it, and gradients where autograd
+count of batched products and matvecs (``linalg.PANEL_PRODUCTS``) and
+of padded copies (``linalg.LAUNCHES["pad"]``), the input left whole where the caller keeps it, and gradients where autograd
 records through the factor.  The JAX package holds the same factor in
 tests/test_torch_gj.py.
 """
@@ -70,6 +70,25 @@ def test_panel_products_a_factor_and_a_solve(T):
         before = dict(linalg.PANEL_PRODUCTS)
         linalg.plu_solve(fac, r, trans)
         assert linalg.PANEL_PRODUCTS["solve"] - before["solve"] == 3 * T - 2
+
+
+@pytest.mark.parametrize("factor, n, pads", [
+    ("blocked", 289, 1), ("blocked", 256, 0), ("blocked", 100, 1),
+    ("inverse", 200, 1), ("inverse", 256, 0)])
+def test_pad_count_once_per_padded_factor(factor, n, pads):
+    """``LAUNCHES["pad"]`` counts one padded copy a factor of a system that
+    is not whole panels (289 rows: the chain's rotated system, three
+    panels) and none at whole panels, whatever the solves after it."""
+    rng = np.random.default_rng(n)
+    K = torch.tensor(kkt_batch(rng, 2, n))
+    r = torch.tensor(rng.standard_normal((2, n)))
+    make = linalg.plu_factor if factor == "blocked" else \
+        linalg.inv_factor_blocks
+    before = linalg.LAUNCHES["pad"]
+    fac = make(K)
+    for trans in (0, 1):
+        linalg.plu_solve(fac, r, trans)
+    assert linalg.LAUNCHES["pad"] - before == pads
 
 
 @pytest.mark.parametrize("padded", [False, True])

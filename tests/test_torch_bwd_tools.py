@@ -114,7 +114,9 @@ def test_bwd_roofline_components_on_the_cpu():
     assert np.isfinite(times).all()
     assert all(comp[k]["host_ms"] > 0 for _, k in BR.TABLE
                if isinstance(comp[k], dict))
-    assert not comp["lcp-bwd"]["launches"]          # plain versions only
+    # plain versions only: no kernel launched (``pad`` counts the padded
+    # copies of the blocked factor, which run on any device)
+    assert set(comp["lcp-bwd"]["launches"]) <= {"pad"}
     assert len(BR.lines(comp, STEPS)) == 3 + len(BR.TABLE)
 
 

@@ -995,3 +995,51 @@ def test_bench_rows_on_the_card(dev):
         for k in need:
             assert rec["launches"].get(k, 0) > 0, (rec["row"], k)
     assert not {"lu", "solve"} & set(lcp["launches"])
+
+
+def _chain_training_call(dtype, device, seed=2 ** 31 + 23):
+    """The per-world losses and the gradients of per-world mass and
+    restitution of one training call of the benchmark's ``chain16`` cell
+    at its CPU test size (``benchmark/tests/tiny/chain16.json``: 6 worlds
+    of a 4-link chain pinned to the world, 4 circles raining on it, q = 9,
+    3 steps), through the port's batched step."""
+    import dataclasses
+    from benchmark.harness import generate, program
+    from benchmark.tests.helpers import tiny_cell
+    c = tiny_cell("chain16-rain-train")
+    conf, traffic = c.config, c.traffic
+    d = generate.draw(traffic, conf, seed)
+    t = lambda x: torch.as_tensor(x, dtype=dtype, device=device)
+    p0, v0 = t(d["p"][0]), t(d["v"][0])
+    B, n, dt = p0.shape[0], traffic["rollout_steps"], conf["dt"]
+    static, params = program.scene(
+        dict(conf, dtype=str(dtype).split(".")[-1]), device)
+    pb = program.batch_params(params, B)
+    step = program.batched_step(static, conf, params_batched=True)
+    s0 = program.WorldState(p0, v0, torch.zeros(B, dtype=dtype,
+                                                device=device))
+    with torch.no_grad():
+        target = program.rollout(step, pb, s0, dt, n)[1].p
+    leaves = {k: t(d["guess"][k]).requires_grad_(True)
+              for k in ("mass", "restitution")}
+    traj = program.rollout(step, dataclasses.replace(pb, **leaves), s0, dt,
+                           n)[1].p
+    loss = ((traj - target) ** 2).mean(dim=(0, 2, 3))
+    grads = torch.autograd.grad(loss.sum(), list(leaves.values()))
+    return loss.detach().cpu().double(), [g.cpu().double() for g in grads]
+
+
+def test_tiny_chain16_training_call_on_the_card(dev):
+    """One training call of the tiny ``chain16`` on the card at float32
+    (K2 = 41 with its 9 joint rows: the fused kernel with equality rows,
+    the backward's lane factor) against the CPU port at float64: the
+    per-world losses and each leaf's gradient within 1e-4 of their
+    largest entry (the CPU port at float32 reads 2e-6 and 4e-6: float32's
+    rounding through 3 steps of a solver that stops at a merit of
+    1e-5)."""
+    loss, grads = _chain_training_call(torch.float32, dev)
+    loss64, grads64 = _chain_training_call(torch.float64, "cpu")
+    for got, want in zip([loss, *grads], [loss64, *grads64]):
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        assert scale > 0 and err <= 1e-4 * scale, (err, scale)

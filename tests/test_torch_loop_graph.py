@@ -5,7 +5,8 @@ op by op, and one pass captured as a CUDA graph and replayed
 On the CPU: the routing rule, a CPU solve that never touches
 ``torch.cuda.graphs``, and the graphed route's static buffers on a
 stand-in graph that replays the captured pass in Python (every factor
-form, two inputs through one capture).  On the card (marked ``cuda``,
+form, two inputs through one capture; the padded copies of a system that
+is not whole panels counted on replay as on the eager pass).  On the card (marked ``cuda``,
 skipped elsewhere): the graphed loop against the eager loop bit for bit
 at two and four K4 panels, f32 and f64, a gradient through
 ``lcp_solve`` on both routes and two shards of one card.  No jax is
@@ -224,6 +225,33 @@ def test_graphed_route_on_a_stand_in_graph(form, monkeypatch):
             if not k.startswith(("route.", "capture")):
                 assert ce[k] == cg[k], k
     assert pdipm.LOOP_CAPTURES["capture"] - captures == 1
+
+
+@pytest.mark.parametrize("C,q,pads", [(128, 33, True), (128, 0, False)],
+                         ids=["padded_289", "whole_256"])
+def test_pad_count_replayed_as_the_eager_pass_counts_it(C, q, pads,
+                                                        monkeypatch):
+    """K2 = 2C + q = 289 rows (the chain cell's rotated system: three
+    panels, 95 rows padded): ``LAUNCHES['pad']`` counts one padded copy a
+    factor on the eager route and on the stand-in graph's route alike,
+    where the capture's bumps are repeated by each replay; at K2 = 256
+    none on either."""
+    stand_in_card(monkeypatch)
+    factor = pdipm._factor
+    monkeypatch.setattr(pdipm, "_factor", lambda *a: (
+        bump(FACTORS, "factor"), factor(*a))[1])
+    (qd, p, G, h, A, b, F), rmask = instance(21, 2, 48, C, q)
+    kw = dict(row_mask=rmask, max_iter=6, tol=1e-9, not_improved_lim=3,
+              q_is_diag=True, gamma_rows=C, fric_pair=True)
+    got = {}
+    for name in ("eager", "graph"):
+        before = counts()
+        with route(name, monkeypatch):
+            pdipm_solve(qd, p, G, h, A, b, F, **kw)
+        got[name] = delta(before)
+    ce, cg = got["eager"], got["graph"]
+    assert cg["route.graph"] > 0 and ce["factor"] == cg["factor"] > 0
+    assert cg["launch.pad"] == ce["launch.pad"] == pads * ce["factor"]
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,8 @@
 which spans the batched step and the solver open, how they nest, that
 ``solver.iter`` counts the unfused loop's iterations, that the hull/hull
 narrowphase, the compaction and each rotated Schur factor open theirs,
-that tracing changes no output, and that with no profiler a span is the
+that the joints' equality rows open theirs only in a jointed scene, that
+tracing changes no output, and that with no profiler a span is the
 shared null context."""
 import numpy as np
 import pytest
@@ -10,8 +11,8 @@ import torch
 
 from test_torch_pdipm import one_torch_thread  # noqa: F401
 
-from lcp_physics_tpu_torch.core import (WorldState, default_params,
-                                        make_scene_static)
+from lcp_physics_tpu_torch.core import (JointSpec, WorldState,
+                                        default_params, make_scene_static)
 from lcp_physics_tpu_torch.core import step as step_mod
 from lcp_physics_tpu_torch.lcp import lcp_solve, pdipm
 from lcp_physics_tpu_torch.parallel import make_batched_step
@@ -234,3 +235,55 @@ def test_hull_step_outputs_bit_identical_with_the_profiler_on_and_off():
     assert len(named(spans, "step.narrowphase.compact")) == 2
     for a, b in zip(plain, flat(on)):
         assert torch.equal(a, b)
+
+
+def chain(B, jointed=True, post_stab=False, links=4, rain=4):
+    """B worlds of ``links`` radius-0.5 circles along x, pinned to the world
+    by a joint and a rot and linked by joints (q = 2 + 1 + 2 (links - 1)
+    rows; ``jointed=False``: the same bodies unlinked), with ``rain``
+    radius-1 circles spread over the chain 1.6 above it, falling at 4,
+    each world its own jitter.  Returns (step, params, states)."""
+    N = links + rain
+    js = [JointSpec(kind="joint", body1=0, local1=(-0.5, 0.0),
+                    ref=(0.0, 0.0, 0.0)), JointSpec(kind="rot", body1=0)]
+    js += [JointSpec(kind="joint", body1=k, body2=k + 1, local1=(0.5, 0.0),
+                     local2=(-0.5, 0.0)) for k in range(links - 1)]
+    static = make_scene_static([1] * N, joints=js if jointed else (),
+                               c_max=16)
+    radius = np.full(N, 1.0)
+    radius[:links] = 0.5
+    params = default_params(static, verts=np.zeros((N, 1, 2)), radius=radius,
+                            restitution=0.4, **F64)
+    rng = np.random.default_rng(7)
+    pos = np.zeros((B, N, 2))
+    pos[:, :links, 0] = 0.5 + np.arange(links)
+    pos[:, links:, 0] = np.arange(rain) * links / rain
+    pos[:, links:, 1] = -1.6
+    pos[:, links:] += rng.uniform(-0.1, 0.1, (B, rain, 2))
+    v = np.zeros((B, N, 3))
+    v[:, links:, 2] = 4.0
+    states = WorldState(
+        torch.tensor(np.concatenate([np.zeros((B, N, 1)), pos], -1), **F64),
+        torch.tensor(v, **F64), torch.zeros(B, **F64))
+    config = SimConfig(max_iter=12, solver_eps=1e-9,
+                       post_stabilization=post_stab)
+    return make_batched_step(static, config), params, states
+
+
+@pytest.mark.parametrize("jointed, post_stab", [
+    (True, False), (True, True), (False, False)])
+def test_joint_span_opens_once_a_step_where_the_scene_has_joints(
+        jointed, post_stab):
+    """``step.assemble.joints`` (``assemble_Je``) opens once a step inside
+    ``step.assemble``, and once more inside ``step.integrate`` with
+    post-stabilization; never in a scene without joints."""
+    step, params, states = chain(2, jointed, post_stab)
+    (s, d), spans = traced(lambda: two_steps(step, params, states))
+    assert int(d.n_contacts.sum()) > 0
+    rows = named(spans, "step.assemble.joints")
+    assert len(named(spans, "step")) == 2
+    for outer, count in (("step.assemble", 2 * jointed),
+                         ("step.integrate", 2 * post_stab)):
+        assert sum(any(inside(r, o) for o in named(spans, outer))
+                   for r in rows) == count, outer
+    assert len(rows) == 2 * jointed * (1 + post_stab)

@@ -29,7 +29,7 @@ from lcp_physics_tpu.core import make_scene_static as jax_scene_static
 from lcp_physics_tpu.core.step import rollout as jax_rollout
 from lcp_physics_tpu.parallel import make_batched_step as jax_batched_step
 from lcp_physics_tpu.utils import SimConfig as JaxSimConfig
-from torch_inputs import one_torch_thread  # noqa: F401
+from torch_inputs import kernel_counts, one_torch_thread  # noqa: F401
 
 import lcp_physics_tpu_torch as port
 from lcp_physics_tpu_torch.core import (JointSpec, SceneStatic, WorldState,
@@ -199,14 +199,13 @@ def test_import_leaves_jax_out():
 def test_cpu_tensors_run_the_plain_versions():
     """On CPU tensors the wrappers dispatch to their plain versions: the
     kernels' launch counters stay at zero through a contact step."""
-    from lcp_physics_tpu_torch.ops import ipm, linalg
-    before = dict(linalg.LAUNCHES, **ipm.LAUNCHES)
+    before = kernel_counts()
     p, v = slice_scene(2)
     _, diag, _, _ = port_run(p, v, 1)
     assert int(diag.n_contacts.sum()) > 0
-    assert dict(linalg.LAUNCHES, **ipm.LAUNCHES) == before == {
+    assert kernel_counts() == before == {
         "lu": 0, "solve": 0, "solve_t": 0, "gj_inv_blocked": 0, "gj_inv": 0,
-        "fused_ipm": 0, "fused_ipm_unrot": 0}
+        "fused_ipm": 0, "fused_ipm_unrot": 0, "ipm_iter": 0}
 
 
 def test_unported_options_raise():
