@@ -12,6 +12,7 @@ fields whose leaves convert with ``numpy.asarray``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
@@ -94,6 +95,15 @@ class SceneStatic:
 
     def pair_lists(self):
         return split_pairs_by_kind(self.counts_np(), self.allowed_np())
+
+    @functools.cached_property
+    def on_device(self) -> dict:
+        """Tensors made from this scene once and kept, keyed by their use,
+        device and dtype (``core.jacobians``'s joint tables).  Held on the
+        instance: the dataclass hashes its N x N ``allowed``, too dear a
+        key for a lookup every step.  Not a field, so equality, hashing
+        and ``dataclasses.replace`` ignore it."""
+        return {}
 
 
 def make_scene_static(counts, joints=(), c_max=None, no_contact=(),

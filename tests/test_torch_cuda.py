@@ -997,23 +997,31 @@ def test_bench_rows_on_the_card(dev):
     assert not {"lu", "solve"} & set(lcp["launches"])
 
 
-def _chain_training_call(dtype, device, seed=2 ** 31 + 23):
-    """The per-world losses and the gradients of per-world mass and
-    restitution of one training call of the benchmark's ``chain16`` cell
-    at its CPU test size (``benchmark/tests/tiny/chain16.json``: 6 worlds
-    of a 4-link chain pinned to the world, 4 circles raining on it, q = 9,
-    3 steps), through the port's batched step."""
-    import dataclasses
+def _tiny_chain16(dtype, device, seed=2 ** 31 + 23):
+    """(config, traffic, draw, (static, params)) of the benchmark's
+    ``chain16`` cell at its CPU test size
+    (``benchmark/tests/tiny/chain16.json``: 6 worlds of a 4-link chain
+    pinned to the world, 4 circles raining on it, q = 9, 3 steps)."""
     from benchmark.harness import generate, program
     from benchmark.tests.helpers import tiny_cell
     c = tiny_cell("chain16-rain-train")
     conf, traffic = c.config, c.traffic
-    d = generate.draw(traffic, conf, seed)
+    return conf, traffic, generate.draw(traffic, conf, seed), program.scene(
+        dict(conf, dtype=str(dtype).split(".")[-1]), device)
+
+
+def _chain_training_call(dtype, device, seed=2 ** 31 + 23, cell=None):
+    """The per-world losses and the gradients of per-world mass and
+    restitution of one training call of the tiny ``chain16``
+    (:func:`_tiny_chain16`, or ``cell``, its result, to step one scene
+    again), through the port's batched step."""
+    import dataclasses
+    from benchmark.harness import program
+    conf, traffic, d, (static, params) = cell or _tiny_chain16(
+        dtype, device, seed)
     t = lambda x: torch.as_tensor(x, dtype=dtype, device=device)
     p0, v0 = t(d["p"][0]), t(d["v"][0])
     B, n, dt = p0.shape[0], traffic["rollout_steps"], conf["dt"]
-    static, params = program.scene(
-        dict(conf, dtype=str(dtype).split(".")[-1]), device)
     pb = program.batch_params(params, B)
     step = program.batched_step(static, conf, params_batched=True)
     s0 = program.WorldState(p0, v0, torch.zeros(B, dtype=dtype,
@@ -1043,3 +1051,70 @@ def test_tiny_chain16_training_call_on_the_card(dev):
         scale = float(want.abs().max())
         err = float((got - want).abs().max())
         assert scale > 0 and err <= 1e-4 * scale, (err, scale)
+
+
+def _copies_in_joint_span(dev):
+    """(spans, names) of one tiny ``chain16`` training call at float32 on
+    the card under the profiler, its scene stepped once before: the spans
+    ``step.assemble.joints`` and, inside them, every ``aten::to``,
+    ``aten::_to_copy``, ``aten::lift_fresh`` and ``cudaMemcpy*`` and every
+    host-to-device ``Memcpy`` on the device."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    cell = _tiny_chain16(torch.float32, dev)
+    _chain_training_call(torch.float32, dev, cell=cell)
+    with torch.profiler.profile(activities=acts) as prof:
+        _chain_training_call(torch.float32, dev, cell=cell)
+    events = [e for e in prof.events() if e.device_type.name == "CPU"]
+    spans = [e.time_range for e in events
+             if e.name == "step.assemble.joints"]
+    names = []
+    for e in events:
+        if not any(s.start <= e.time_range.start and e.time_range.end <= s.end
+                   for s in spans):
+            continue
+        if (e.name in ("aten::to", "aten::_to_copy", "aten::lift_fresh")
+                or e.name.startswith("cudaMemcpy")):
+            names.append(e.name)
+        names += [k.name for k in e.kernels if "HtoD" in k.name]
+    return spans, names
+
+
+def test_joint_rows_copy_nothing_to_the_card(dev, monkeypatch):
+    """Inside ``step.assemble.joints`` the tiny ``chain16``'s training call
+    makes no host-to-device copy and no ``aten::to``/``lift_fresh``: the
+    joint tables were copied when the scene first stepped.  The per-spec
+    loop in its place (``torch_inputs.loop_joint_rows``) shows its
+    offsets' copies there, so the profile sees them."""
+    from lcp_physics_tpu_torch.core import step as step_mod
+    from torch_inputs import loop_joint_rows
+    spans, names = _copies_in_joint_span(dev)
+    assert spans and not names, names
+    monkeypatch.setattr(step_mod, "assemble_Je", loop_joint_rows)
+    spans, names = _copies_in_joint_span(dev)
+    assert spans and any("HtoD" in n for n in names), names
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_joint_rows_on_the_card_equal_the_per_spec_loop(dev, dtype):
+    """The joint rows, the position error and p's gradient through each on
+    the card, from the tables and from the per-spec loop, bit for bit: the
+    tiny ``chain16``'s first state, and 5 worlds under every joint kind
+    (``torch_inputs.every_joint_kind``).  The chain's first link's angle
+    takes three terms of the error, which p's gradient sums in another
+    order (``torch_inputs.chain16_joints``): there within 4 ulps."""
+    from torch_inputs import (every_joint_kind, joint_rows_against_loop,
+                              sum_order_close)
+    _, _, d, (static, _) = _tiny_chain16(dtype, dev)
+    p0 = torch.as_tensor(d["p"][0], dtype=dtype, device=dev)
+    kinds, pk = every_joint_kind()
+    pk = np.concatenate([pk, np.random.default_rng(5).uniform(
+        -4.0, 4.0, (4, *pk.shape[1:]))])
+    for st, p in ((static, p0),
+                  (kinds, torch.as_tensor(pk, dtype=dtype, device=dev))):
+        for name, got, want in joint_rows_against_loop(st, p):
+            assert got.is_cuda, name
+            if st is static and name == "error grad":
+                assert sum_order_close(got, want), name
+            else:
+                assert torch.equal(got, want), name

@@ -2,9 +2,9 @@
 which spans the batched step and the solver open, how they nest, that
 ``solver.iter`` counts the unfused loop's iterations, that the hull/hull
 narrowphase, the compaction and each rotated Schur factor open theirs,
-that the joints' equality rows open theirs only in a jointed scene, that
-tracing changes no output, and that with no profiler a span is the
-shared null context."""
+that the joints' equality rows open theirs only in a jointed scene and
+make their tables once a scene, that tracing changes no output, and that
+with no profiler a span is the shared null context."""
 import numpy as np
 import pytest
 import torch
@@ -13,6 +13,7 @@ from test_torch_pdipm import one_torch_thread  # noqa: F401
 
 from lcp_physics_tpu_torch.core import (JointSpec, WorldState,
                                         default_params, make_scene_static)
+from lcp_physics_tpu_torch.core import jacobians
 from lcp_physics_tpu_torch.core import step as step_mod
 from lcp_physics_tpu_torch.lcp import lcp_solve, pdipm
 from lcp_physics_tpu_torch.parallel import make_batched_step
@@ -287,3 +288,24 @@ def test_joint_span_opens_once_a_step_where_the_scene_has_joints(
         assert sum(any(inside(r, o) for o in named(spans, outer))
                    for r in rows) == count, outer
     assert len(rows) == 2 * jointed * (1 + post_stab)
+
+
+@pytest.mark.parametrize("jointed, post_stab", [
+    (True, False), (True, True), (False, False)])
+def test_joint_tables_are_made_once_a_scene_and_used_every_step(
+        jointed, post_stab):
+    """``jacobians.JOINT_TABLES``: a jointed scene's tables are made at its
+    first step and not again; every call of the rows (and of the position
+    error) is served from them: one a step, three with post-stabilization
+    (its rows and its error besides).  A scene without joints moves
+    neither count."""
+    step, params, states = chain(2, jointed, post_stab)
+    counts = jacobians.JOINT_TABLES
+    seen = [dict(counts)]
+    s, _ = step(params, states, 0.01)
+    seen.append(dict(counts))
+    step(params, s, 0.01)
+    seen.append(dict(counts))
+    moved = lambda key: [b[key] - a[key] for a, b in zip(seen, seen[1:])]
+    assert moved("made") == [int(jointed), 0]
+    assert moved("used") == [jointed * (1 + 2 * post_stab)] * 2

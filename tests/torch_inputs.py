@@ -519,6 +519,170 @@ def per_block_solve(fac, r, trans=0):
     return torch.cat(xs, dim=-1)[:, :n]
 
 
+def _point_velocity_row(r):
+    """Row blocks (..., 3) [d/d omega, d/d vx, d/d vy] of the world velocity
+    of a point at offset r from the com: v_pt = v + omega * perp(r)."""
+    one, zero = torch.ones_like(r[..., 0]), torch.zeros_like(r[..., 0])
+    row_x = torch.stack([-r[..., 1], one, zero], dim=-1)
+    row_y = torch.stack([r[..., 0], zero, one], dim=-1)
+    return row_x, row_y
+
+
+def every_joint_kind():
+    """(static, p0 (numpy, 1 world)) of 10 circles under every joint kind:
+    a ``joint`` to the world and one between bodies 1 and 2, a ``fixed``
+    to the world and one between bodies 4 and 5, ``x`` and ``y`` on body
+    6, ``rot`` on 7, ``total`` on 8 and a ``joint`` of body 9 with itself
+    (its second term overwrites its first's entries of Je).  No
+    coordinate of p carries more than two terms of the rows or of the
+    error: past two, p's gradient sums the same terms in the loop's order
+    and in the tables' (:func:`chain16_joints`)."""
+    from lcp_physics_tpu_torch.core import JointSpec, make_scene_static
+    js = [JointSpec("joint", 0, local1=(-0.5, 0.1), ref=(0.0, 0.3, -0.7)),
+          JointSpec("joint", 1, 2, local1=(0.5, 0.2), local2=(-0.4, 0.3)),
+          JointSpec("fixed", 3, local1=(0.2, -0.3), ref=(0.3, 1.1, -2.0)),
+          JointSpec("fixed", 4, 5, local1=(0.1, 0.7), local2=(-0.6, 0.25),
+                    ref=(0.4, 0.0, 0.0)),
+          JointSpec("x", 6, ref=(0.0, 0.9, 0.0)),
+          JointSpec("y", 6, ref=(0.0, 0.0, 1.3)),
+          JointSpec("rot", 7, ref=(0.8, 0.0, 0.0)),
+          JointSpec("total", 8, ref=(0.1, 0.2, 0.3)),
+          JointSpec("joint", 9, 9, local1=(0.3, 0.1), local2=(-0.2, 0.5))]
+    static = make_scene_static([1] * 10, joints=js)
+    p0 = np.random.default_rng(11).uniform(-4.0, 4.0, (1, 10, 3))
+    return static, p0
+
+
+def chain16_joints():
+    """(static, p0 (numpy, 1 world)) of the benchmark's ``chain16`` joint
+    list (``benchmark/configs/chain16.json``: 64 bodies, 17 specs, q = 33)
+    at random poses.  One coordinate carries three terms of the position
+    error, the first link's angle (the anchor joint, the ``rot`` row and
+    the first link joint), so p's gradient through the error sums them in
+    the loop's order and in the tables' and may round apart there."""
+    import json
+    import pathlib
+    from benchmark.harness import program
+    from lcp_physics_tpu_torch.core import make_scene_static
+    root = pathlib.Path(__file__).resolve().parents[1]
+    conf = json.loads((root / "benchmark/configs/chain16.json").read_text())
+    static = make_scene_static([1] * conf["bodies"],
+                               joints=program.joints(conf))
+    p0 = np.random.default_rng(13).uniform(-4.0, 4.0, (1, conf["bodies"], 3))
+    return static, p0
+
+
+def sum_order_close(got, want):
+    """got equals want up to the order of a short sum: within 4 ulps of
+    want's largest entry."""
+    eps = torch.finfo(want.dtype).eps
+    scale = float(want.abs().max())
+    return float((got - want).abs().max()) <= 4 * eps * scale
+
+
+def loop_joint_rows(static, p):
+    """The equality Jacobian (B, n_eq, 3N) a joint spec at a time, as the
+    port first computed it: per spec its rows written into (B, 3N) zero
+    tensors, each offset made on p's device, then stacked."""
+    from lcp_physics_tpu_torch.utils import rotate
+    B, N = p.shape[0], static.n_bodies
+    opts = dict(dtype=p.dtype, device=p.device)
+    rows = []
+
+    def unit(col):
+        r = torch.zeros((B, 3 * N), **opts)
+        r[:, col] = 1.0
+        return r
+
+    for js in static.joints:
+        b1 = js.body1
+        if js.kind in ("joint", "fixed"):
+            r1 = rotate(torch.tensor(js.local1, **opts), p[:, b1, 0])
+            row1x, row1y = _point_velocity_row(r1)
+            rx = torch.zeros((B, 3 * N), **opts)
+            ry = torch.zeros((B, 3 * N), **opts)
+            rx[:, 3 * b1:3 * b1 + 3] = row1x
+            ry[:, 3 * b1:3 * b1 + 3] = row1y
+            if js.body2 >= 0:
+                b2 = js.body2
+                r2 = rotate(torch.tensor(js.local2, **opts), p[:, b2, 0])
+                row2x, row2y = _point_velocity_row(r2)
+                rx[:, 3 * b2:3 * b2 + 3] = -row2x
+                ry[:, 3 * b2:3 * b2 + 3] = -row2y
+            rows += [rx, ry]
+            if js.kind == "fixed":
+                rr = unit(3 * b1)
+                if js.body2 >= 0:
+                    rr[:, 3 * js.body2] = -1.0
+                rows.append(rr)
+        elif js.kind in ("x", "y", "rot"):
+            rows.append(unit(3 * b1 + {"rot": 0, "x": 1, "y": 2}[js.kind]))
+        elif js.kind == "total":
+            rows += [unit(3 * b1 + col) for col in (0, 1, 2)]
+        else:
+            raise ValueError(f"unknown joint kind {js.kind}")
+    if not rows:
+        return torch.zeros((B, 0, 3 * N), **opts)
+    return torch.stack(rows, dim=1)
+
+
+def loop_position_error(static, p):
+    """The position error (B, n_eq) a joint spec at a time, as the port
+    first computed it."""
+    from lcp_physics_tpu_torch.utils import rotate
+    B = p.shape[0]
+    opts = dict(dtype=p.dtype, device=p.device)
+    errs = []
+    for js in static.joints:
+        b1 = js.body1
+        if js.kind in ("joint", "fixed"):
+            a1 = p[:, b1, 1:3] + rotate(torch.tensor(js.local1, **opts),
+                                        p[:, b1, 0])
+            if js.body2 >= 0:
+                b2 = js.body2
+                a2 = p[:, b2, 1:3] + rotate(torch.tensor(js.local2, **opts),
+                                            p[:, b2, 0])
+            else:
+                a2 = torch.tensor(js.ref[1:3], **opts).expand(B, 2)
+            err = a1 - a2
+            errs += [err[:, 0], err[:, 1]]
+            if js.kind == "fixed":
+                rot2 = p[:, js.body2, 0] if js.body2 >= 0 else 0.0
+                errs.append(p[:, b1, 0] - rot2 - js.ref[0])
+        elif js.kind in ("x", "y", "rot"):
+            col = {"rot": 0, "x": 1, "y": 2}[js.kind]
+            errs.append(p[:, b1, col] - js.ref[col])
+        elif js.kind == "total":
+            errs += [p[:, b1, col] - js.ref[col] for col in (0, 1, 2)]
+    if not errs:
+        return torch.zeros((B, 0), **opts)
+    return torch.stack(errs, dim=1)
+
+
+def joint_rows_against_loop(static, p0, seed=5):
+    """[(name, tables', loop's)] for the equality rows, the position error
+    and p's gradient of each weighted by a fixed draw (in p0's dtype and
+    on its device), from ``core.jacobians`` and from the per-spec loop."""
+    from lcp_physics_tpu_torch.core import jacobians
+    rng = np.random.default_rng(seed)
+    B, q, N = p0.shape[0], static.n_eq, static.n_bodies
+    draw = lambda *shape: torch.as_tensor(rng.normal(size=shape),
+                                          dtype=p0.dtype, device=p0.device)
+    out = []
+    for name, tables, loop, w in (
+            ("rows", jacobians.assemble_Je, loop_joint_rows,
+             draw(B, q, 3 * N)),
+            ("error", jacobians.constraint_position_error,
+             loop_position_error, draw(B, q))):
+        got, want = [], []
+        for fn, res in ((tables, got), (loop, want)):
+            p = p0.clone().requires_grad_(True)
+            x = fn(static, p)
+            res += [x.detach(), torch.autograd.grad((x * w).sum(), p)[0]]
+        out += [(name, got[0], want[0]), (f"{name} grad", got[1], want[1])]
+    return out
+
+
 def sharded_rollout(static, cfg, params, state, steps, mesh, dev):
     """``parallel.batched_rollout`` over ``mesh``, gathered on ``dev``:
     (final, trajectory)."""
